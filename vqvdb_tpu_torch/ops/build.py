@@ -1,0 +1,91 @@
+"""Build and load the package's CUDA kernels.
+
+Each `csrc/<name>.cu` is compiled on first use by its own `nvcc` process
+(all started together) into `vqvdb_tpu_torch/_build/<name>-<hash>.so` and
+loaded with ctypes. The hash covers the source and the flags, so an edited
+kernel rebuilds and an unchanged one is reused. The sources have a plain C
+interface: every entry point takes pointers and the stream as `void*`,
+sizes as `int`, and returns `cudaGetLastError()` after its launch.
+
+A missing `nvcc`, a failed build or a failed load raises; nothing falls
+back to another implementation.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+SOURCES = ("dequantize", "score_argmin")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def find_nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home, "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin); the CUDA "
+        "kernels cannot be built")
+
+
+def _target(name: str) -> Path:
+    src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{digest[:16]}.so"
+
+
+def build() -> Dict[str, str]:
+    """Compile every kernel source whose library is missing, one nvcc
+    process per source, all started together. Returns {name: nvcc output,
+    which holds the ptxas report} for the sources it compiled."""
+    todo = [n for n in SOURCES if not _target(n).exists()]
+    if not todo:
+        return {}
+    nvcc = find_nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in todo:
+        tmp = _target(name).with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    reports, failed = {}, []
+    for name, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"--- {name}.cu (nvcc exit {proc.returncode})\n{out}")
+            tmp.unlink(missing_ok=True)
+            continue
+        os.replace(tmp, _target(name))
+        reports[name] = out
+    if failed:
+        raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
+    return reports
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, building every kernel source
+    first if this one is not built yet."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            if not _target(name).exists():
+                build()
+            lib = ctypes.CDLL(str(_target(name)))
+            _libs[name] = lib
+        return lib
