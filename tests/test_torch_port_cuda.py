@@ -5,9 +5,12 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
-Inputs are small integers, so every product and sum is exact in f32 (and
-TF32) and indices must be equal, ties going to the first minimum; ragged
-row counts and out-of-range dequantize indices are included.
+For the quantizer kernels the inputs are small integers, so every product
+and sum is exact in f32 (and TF32) and indices must be equal, ties going to
+the first minimum; ragged row counts and out-of-range dequantize indices are
+included. The fused residual block is held to its plain version within
+2e-5 in f32 (sums in another order) and within one bf16 step in bf16 (both
+compute in f32 and round once at the end).
 """
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 
 from vqvdb_tpu_torch.models.quantizer import dequantize, nearest_indices
 from vqvdb_tpu_torch.ops import quantize as q
+from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused, residual_block_plain
 
 
 @pytest.fixture
@@ -103,3 +107,59 @@ def test_card_wrappers_raise_instead_of_falling_back(rng):
                              torch.zeros(1, 100, device=dev))
     with pytest.raises(ValueError):  # z must be f32 on the card
         q.fused_nearest_indices(torch.zeros(8, 128, device=dev, dtype=torch.bfloat16), cb)
+
+
+def _rb_params(rng, dev, c=16):
+    """A residual block's tree in the port's layout (OIDHW convs)."""
+    t = lambda a: torch.from_numpy(a.astype(np.float32)).to(dev)
+    conv = lambda: {"w": t(0.05 * rng.standard_normal((c, c, 3, 3, 3))),
+                    "b": t(0.1 * rng.standard_normal(c))}
+    gn = lambda: {"scale": t(1 + 0.1 * rng.standard_normal(c)),
+                  "bias": t(0.1 * rng.standard_normal(c))}
+    return {"gn1": gn(), "conv1": conv(), "gn2": gn(), "conv2": conv()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("groups", [8, 4])
+@pytest.mark.parametrize("n", [301, 1])
+def test_card_fused_rb(rng, dtype, groups, n):
+    """301 leaves: more than one pass of the persistent grid, and an odd
+    count, so one block's second leaf slot runs empty."""
+    dev = _card()
+    p = _rb_params(rng, dev)
+    x = torch.from_numpy(_rand(rng, n, 8, 8, 8, 16)).to(dev, dtype)
+    launches = residual_block_fused.launches
+    got = residual_block_fused(p, x, groups=groups)
+    torch.cuda.synchronize()
+    assert residual_block_fused.launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = residual_block_plain(p, x, groups, 0.1)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-5, rtol=2e-5)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-3, rtol=8e-3)
+    # another residual scale, and the same input gives the same bits again
+    assert torch.equal(residual_block_fused(p, x, groups=groups), got)
+    half = residual_block_fused(p, x, groups=groups, res_scale=0.5)
+    tol = dict(atol=5e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=8e-3)
+    torch.testing.assert_close(half.float(),
+                               residual_block_plain(p, x, groups, 0.5).float(), **tol)
+
+
+@pytest.mark.cuda
+def test_card_fused_rb_raises_instead_of_falling_back(rng):
+    dev = _card()
+    p = _rb_params(rng, dev)
+    x = torch.zeros(4, 8, 8, 8, 16, device=dev)
+    assert residual_block_fused(p, x[:0]).shape == (0, 8, 8, 8, 16)
+    with pytest.raises(ValueError):  # NCDHW memory under an NDHWC shape
+        residual_block_fused(p, torch.zeros(4, 16, 8, 8, 8, device=dev).permute(0, 2, 3, 4, 1))
+    with pytest.raises(ValueError):  # f16 is not taken
+        residual_block_fused(p, x.half())
+    with pytest.raises(ValueError):  # C != 16
+        residual_block_fused(_rb_params(rng, dev, c=32), torch.zeros(4, 8, 8, 8, 32, device=dev))
+    with pytest.raises(ValueError):  # input on the card, weights on the CPU
+        residual_block_fused(_rb_params(rng, torch.device("cpu")), x)
+    with pytest.raises(ValueError):  # groups must divide 16
+        residual_block_fused(p, x, groups=3)

@@ -14,8 +14,8 @@ from vqvdb_tpu_torch.vdb import grid
 GRIDS = [("density", 37), ("temperature", 5), ("empty", 0)]
 
 
-def _grid_data(rng, n):
-    idx = rng.integers(0, 256, size=(n, 4, 4, 4), dtype=np.uint8)
+def _grid_data(rng, n, latent=(4, 4, 4)):
+    idx = rng.integers(0, 256, size=(n,) + latent, dtype=np.uint8)
     org = (rng.integers(-50, 50, size=(n, 3)) * 8).astype(np.int32)
     xf = np.eye(4, dtype=np.float32) * 0.5
     xf[3, 3] = 1.0
@@ -26,7 +26,7 @@ def _write(mod, path, data, abort_last=False):
     with mod.VqvdbWriter(path) as w:
         for (name, n), (idx, org, xf) in zip(GRIDS, data):
             w.start_grid(mod.GridMetadata(name=name, num_embeddings=256,
-                                          latent_shape=(4, 4, 4),
+                                          latent_shape=idx.shape[1:],
                                           total_blocks=n, transform=xf))
             # two batches, as the codec writes them
             w.write_batch(idx[:10], org[:10])
@@ -39,7 +39,17 @@ def _write(mod, path, data, abort_last=False):
 
 @pytest.mark.parametrize("abort", [False, True])
 def test_files_byte_identical_and_cross_readable(rng, tmp_path, abort):
-    data = [_grid_data(rng, n) for _, n in GRIDS]
+    _check_files(rng, tmp_path, abort, (4, 4, 4))
+
+
+@pytest.mark.parametrize("abort", [False, True])
+def test_rvq_files_byte_identical_and_cross_readable(rng, tmp_path, abort):
+    """A two-stage residual-VQ grid: the 4-D latent shape (4,4,4,2)."""
+    _check_files(rng, tmp_path, abort, (4, 4, 4, 2))
+
+
+def _check_files(rng, tmp_path, abort, latent):
+    data = [_grid_data(rng, n, latent) for _, n in GRIDS]
     ours, theirs = tmp_path / "ours.vqvdb", tmp_path / "theirs.vqvdb"
     _write(fmt, ours, data, abort)
     _write(jfmt, theirs, data, abort)
@@ -53,7 +63,7 @@ def test_files_byte_identical_and_cross_readable(rng, tmp_path, abort):
                         break
                     meta, got_idx, got_org = r.read_grid()
                     assert meta.name == name
-                    assert tuple(meta.latent_shape) == (4, 4, 4)
+                    assert tuple(meta.latent_shape) == latent
                     np.testing.assert_array_equal(meta.transform, xf)
                     np.testing.assert_array_equal(got_idx, idx)
                     np.testing.assert_array_equal(got_org, org)

@@ -3,8 +3,8 @@
 `ModelConfig` keeps the JAX package's fields and validation so a `.vqmodel`
 config block loads unchanged. `CodecConfig` keeps the pipeline knobs that
 mean something on the card; the TPU-only ones (`use_pallas`,
-`use_pallas_dequant`, `split_conv_in`, `fuse_rb16`, `donate_buffers`) are
-gone: on a CUDA tensor the codec always runs the hand-written kernels.
+`use_pallas_dequant`, `split_conv_in`, `donate_buffers`) are gone: on a
+CUDA tensor the codec always runs the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -77,9 +77,16 @@ class CodecConfig:
     fuse_proj_quantize: fold the encoder's 1x1 projection into the
         quantizer score GEMM (score-argmin kernel); off runs the projection
         and then the nearest-code kernel.
-    pack_down_conv: run the reference encoder's strided conv on the
-        space-to-channel grid. It has no effect on the packed encoders, the
-        only ones this package runs so far.
+    pack_down_conv: run the reference encoder's strided conv as a k3 conv
+        on the space-to-channel grid (ops/packed.py). As in the JAX
+        package it takes effect only together with the folded projection
+        (`fuse_proj_quantize` on a single-stage model) and has no effect
+        on the packed encoders.
+    fuse_rb16: run the reference scalar encoder's 16-channel residual
+        block as one kernel (ops/fused_rb.py) on the `pack_down_conv`
+        path. The JAX package defaults this to off; here the card path
+        runs the hand-written kernel unless the caller turns it off,
+        which selects the eager `blocks.residual_block`.
     """
 
     batch_size: int = 4096
@@ -87,6 +94,7 @@ class CodecConfig:
     fuse_decoder_tail: bool = True
     fuse_proj_quantize: bool = True
     pack_down_conv: bool = True
+    fuse_rb16: bool = True
 
     def __post_init__(self):
         if self.compute_dtype not in ("bfloat16", "float32"):

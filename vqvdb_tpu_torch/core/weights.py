@@ -2,7 +2,7 @@
 
 The JAX package stores convs as DHWIO `(kd, kh, kw, in, out)`, linears as
 `(in, out)`, GroupNorm as `scale`/`bias` and the codebook as `vq.embedding`
-`(K, D)`. The port keeps the same nested-dict tree with torch tensors:
+`(K, D)`, or `(S, K, D)` for an S-stage residual-VQ model. The port keeps the same nested-dict tree with torch tensors:
 convs become OIDHW (the reverse of `vqvdb_tpu/core/torch_import.py`'s
 transpose), stored channels-last so cuDNN runs them in NDHWC; every other
 leaf keeps its shape.
@@ -57,7 +57,9 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
     out = tree_to_torch(tree, dev)
     emb = out["vq"]["embedding"]
     want = (cfg.num_embeddings, cfg.embedding_dim)
-    if cfg.num_quantizers == 1 and tuple(emb.shape) != want:
+    if cfg.num_quantizers > 1:  # residual-VQ: one codebook per stage
+        want = (cfg.num_quantizers,) + want
+    if tuple(emb.shape) != want:
         raise ConfigError(
             f"codebook shape {tuple(emb.shape)} != config {want}")
     return out

@@ -12,6 +12,7 @@ scale is rounded to the input dtype before it multiplies.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict
 
 import torch
@@ -20,12 +21,23 @@ import torch.nn.functional as F
 Params = Dict[str, torch.Tensor]
 
 
-def conv3d(params: Params, x: torch.Tensor, *, padding: int = 0) -> torch.Tensor:
-    """3D convolution, stride 1: NDHWC x OIDHW -> NDHWC."""
+def conv3d(params: Params, x: torch.Tensor, *, stride: int = 1,
+           padding: int = 0) -> torch.Tensor:
+    """3D convolution: NDHWC x OIDHW -> NDHWC."""
     w = params["w"].to(x.dtype)
     b = params["b"].to(x.dtype) if "b" in params else None
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, padding=padding)
+    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride=stride, padding=padding)
     return y.permute(0, 2, 3, 4, 1)
+
+
+def no_tf32(device: torch.device):
+    """Context in which cuDNN runs f32 convs in f32 (it takes TF32 by
+    default); for weight folds and plain versions that must be f32."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                       deterministic=cudnn.deterministic, allow_tf32=False)
 
 
 def same_padding(params: Params) -> int:

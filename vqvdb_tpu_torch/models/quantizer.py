@@ -4,6 +4,13 @@
 `nearest_indices` and `dequantize` are the plain PyTorch versions of the
 nearest-code and dequantize kernels (`ops/quantize.py`). The tests hold
 them to the JAX package, and the kernels are held to them on the card.
+
+`rvq_indices` and `rvq_dequantize` are the residual-VQ pair: S codebooks
+stacked as [S, K, D], stage s coding what stages < s left over. Their
+per-stage steps go through the kernels' wrappers (imported inside the
+functions: `ops/quantize.py` imports this module), so on the card each
+stage launches the nearest-code and dequantize kernels once and on the CPU
+their plain versions run.
 """
 
 from __future__ import annotations
@@ -35,3 +42,29 @@ def dequantize(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     rows = codebook[torch.where(valid, idx, 0)]
     return torch.where(valid[:, None], rows, torch.zeros((), dtype=rows.dtype,
                                                          device=rows.device))
+
+
+def rvq_indices(flat_z: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """flat_z [N, D], codebooks [S, K, D] -> int32 [N, S]: per stage the
+    nearest code to the f32 residual, whose row is then subtracted."""
+    from vqvdb_tpu_torch.ops.quantize import fused_dequantize, fused_nearest_indices
+
+    res = flat_z.to(torch.float32)
+    idx = []
+    for codebook in codebooks.to(torch.float32):
+        i = fused_nearest_indices(res, codebook)
+        idx.append(i)
+        res = res - fused_dequantize(i, codebook)
+    return torch.stack(idx, dim=-1)
+
+
+def rvq_dequantize(indices: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+    """indices [N, S], codebooks [S, K, D] -> [N, D]: the stages' rows summed
+    in the codebooks' dtype (cast them to the compute dtype first)."""
+    from vqvdb_tpu_torch.ops.quantize import fused_dequantize
+
+    out = None
+    for s, codebook in enumerate(codebooks):
+        q = fused_dequantize(indices[:, s].contiguous(), codebook)
+        out = q if out is None else out + q
+    return out

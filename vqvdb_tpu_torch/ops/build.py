@@ -1,4 +1,4 @@
-"""Build and load the package's CUDA kernels.
+"""Build, load and launch the package's CUDA kernels.
 
 Each `csrc/<name>.cu` is compiled on first use by its own `nvcc` process
 (all started together) into `vqvdb_tpu_torch/_build/<name>-<hash>.so` and
@@ -8,7 +8,9 @@ interface: every entry point takes pointers and the stream as `void*`,
 sizes as `int`, and returns `cudaGetLastError()` after its launch.
 
 A missing `nvcc`, a failed build or a failed load raises; nothing falls
-back to another implementation.
+back to another implementation. `call` launches an entry point on the
+current stream and raises on a launch error; `on_card` and `require` are
+the wrappers' shared input checks.
 """
 
 from __future__ import annotations
@@ -20,17 +22,29 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
+
+import torch
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("dequantize", "score_argmin")
+SOURCES = ("dequantize", "score_argmin", "fused_rb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# entry point -> (source, argument types before the trailing stream)
+ENTRY_POINTS = {
+    "vq_dequantize": ("dequantize", (_P, _I, _P, _P, _I, _I, _I)),
+    "vq_score_argmin": ("score_argmin", (_P, _I, _P, _P, _P, _I, _I, _I)),
+    "vq_nearest_indices": ("score_argmin", (_P, _P, _P, _P, _I, _I, _I)),
+    "vq_residual_block16": ("fused_rb", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F)),
+}
+
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_entries: Dict[str, Tuple[ctypes.CDLL, object]] = {}
 
 
 def find_nvcc() -> str:
@@ -89,3 +103,45 @@ def library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
         return lib
+
+
+def _entry(name: str):
+    if name not in _entries:
+        libname, argtypes = ENTRY_POINTS[name]
+        lib = library(libname)
+        fn = getattr(lib, name)
+        fn.argtypes = [*argtypes, _P]
+        fn.restype = ctypes.c_int
+        lib.vq_error_string.argtypes = [ctypes.c_int]
+        lib.vq_error_string.restype = ctypes.c_char_p
+        _entries[name] = (lib, fn)
+    return _entries[name]
+
+
+def call(name: str, device: torch.device, *args) -> None:
+    """Launch entry point `name` on the current stream of `device`; raise
+    if the launch reports an error."""
+    lib, fn = _entry(name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        status = fn(*args, stream)
+    if status != 0:
+        msg = lib.vq_error_string(status).decode()
+        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({status})")
+
+
+def on_card(*tensors: torch.Tensor) -> bool:
+    """True when every tensor is on one CUDA device, False when every tensor
+    is on the CPU; raise otherwise."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
+    (dev,) = devices
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)

@@ -16,64 +16,13 @@ dtype on both paths.
 
 from __future__ import annotations
 
-import ctypes
-from typing import Dict, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from vqvdb_tpu_torch.models.quantizer import dequantize, nearest_indices
-from vqvdb_tpu_torch.ops import build
-
-_P, _I = ctypes.c_void_p, ctypes.c_int
-_ENTRY_POINTS = {
-    "vq_dequantize": ("dequantize", (_P, _I, _P, _P, _I, _I, _I, _P)),
-    "vq_score_argmin": ("score_argmin", (_P, _I, _P, _P, _P, _I, _I, _I, _P)),
-    "vq_nearest_indices": ("score_argmin", (_P, _P, _P, _P, _I, _I, _I, _P)),
-}
-_entries: Dict[str, Tuple[ctypes.CDLL, object]] = {}
-
-
-def _entry(name: str):
-    if name not in _entries:
-        libname, argtypes = _ENTRY_POINTS[name]
-        lib = build.library(libname)
-        fn = getattr(lib, name)
-        fn.argtypes = list(argtypes)
-        fn.restype = ctypes.c_int
-        lib.vq_error_string.argtypes = [ctypes.c_int]
-        lib.vq_error_string.restype = ctypes.c_char_p
-        _entries[name] = (lib, fn)
-    return _entries[name]
-
-
-def _call(name: str, device: torch.device, *args) -> None:
-    """Launch entry point `name` on the current stream of `device`; raise
-    if the launch reports an error."""
-    lib, fn = _entry(name)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        status = fn(*args, stream)
-    if status != 0:
-        msg = lib.vq_error_string(status).decode()
-        raise RuntimeError(f"{name}: kernel launch failed: {msg} ({status})")
-
-
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True when every tensor is on one CUDA device, False when every tensor
-    is on the CPU; raise otherwise."""
-    devices = {t.device for t in tensors}
-    if len(devices) != 1:
-        raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
-    (dev,) = devices
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}")
-    return dev.type == "cuda"
-
-
-def _require(cond: bool, msg: str) -> None:
-    if not cond:
-        raise ValueError(msg)
+from vqvdb_tpu_torch.ops.build import call, on_card, require
 
 
 # ---------------------------------------------------------------------------
@@ -84,26 +33,26 @@ def fused_dequantize(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
     """indices [N] (uint8 or int32 on the card; any int on the CPU),
     codebook [K, D] -> rows [N, D] in the codebook's dtype; an index outside
     [0, K) gives an all-zero row."""
-    _require(indices.dim() == 1 and codebook.dim() == 2,
+    require(indices.dim() == 1 and codebook.dim() == 2,
              f"want indices [N] and codebook [K, D], got "
              f"{tuple(indices.shape)} and {tuple(codebook.shape)}")
-    if not _on_card(indices, codebook):
+    if not on_card(indices, codebook):
         return dequantize(indices, codebook)
-    _require(indices.dtype in (torch.uint8, torch.int32),
+    require(indices.dtype in (torch.uint8, torch.int32),
              f"indices must be uint8 or int32 on the card, got {indices.dtype}")
-    _require(codebook.dtype in (torch.float32, torch.bfloat16),
+    require(codebook.dtype in (torch.float32, torch.bfloat16),
              f"codebook must be float32 or bfloat16, got {codebook.dtype}")
     k, d = codebook.shape
     row_bytes = d * codebook.element_size()
-    _require(row_bytes % 16 == 0, f"codebook rows of {row_bytes} B are not "
+    require(row_bytes % 16 == 0, f"codebook rows of {row_bytes} B are not "
              "a multiple of 16 B")
     indices = indices.contiguous()
     codebook = codebook.contiguous()
-    _require(codebook.data_ptr() % 16 == 0, "codebook is not 16-byte aligned")
+    require(codebook.data_ptr() % 16 == 0, "codebook is not 16-byte aligned")
     n = indices.shape[0]
     out = torch.empty((n, d), dtype=codebook.dtype, device=codebook.device)
     if n:
-        _call("vq_dequantize", codebook.device, indices.data_ptr(),
+        call("vq_dequantize", codebook.device, indices.data_ptr(),
               indices.element_size(), codebook.data_ptr(), out.data_ptr(),
               n, k, row_bytes)
         fused_dequantize.launches += 1
@@ -145,30 +94,30 @@ def score_argmin_plain(h_flat: torch.Tensor, m: torch.Tensor,
 
 
 def _check_scores(x: torch.Tensor, m: torch.Tensor, c: torch.Tensor) -> None:
-    _require(x.dim() == 2 and m.dim() == 2 and m.shape[0] == x.shape[1],
+    require(x.dim() == 2 and m.dim() == 2 and m.shape[0] == x.shape[1],
              f"want rows [N, F] and M [F, K], got {tuple(x.shape)} and "
              f"{tuple(m.shape)}")
     k = m.shape[1]
-    _require(c.numel() == k, f"c has {c.numel()} entries, M has {k} columns")
-    _require(k % 64 == 0 and 64 <= k <= 256,
+    require(c.numel() == k, f"c has {c.numel()} entries, M has {k} columns")
+    require(k % 64 == 0 and 64 <= k <= 256,
              f"the kernel takes K in 64, 128, 192, 256; got {k}")
-    _require(m.dtype == torch.float32 and c.dtype == torch.float32,
+    require(m.dtype == torch.float32 and c.dtype == torch.float32,
              "M and c must be float32")
 
 
 def fused_score_argmin(h_flat: torch.Tensor, m: torch.Tensor,
                        c: torch.Tensor) -> torch.Tensor:
     """h_flat [N, F] (bf16 or f32), M [F, K] f32, c [1, K] f32 -> int32 [N]."""
-    if not _on_card(h_flat, m, c):
+    if not on_card(h_flat, m, c):
         return score_argmin_plain(h_flat, m, c)
     _check_scores(h_flat, m, c)
-    _require(h_flat.dtype in (torch.float32, torch.bfloat16),
+    require(h_flat.dtype in (torch.float32, torch.bfloat16),
              f"h must be float32 or bfloat16, got {h_flat.dtype}")
     h_flat, m, c = h_flat.contiguous(), m.contiguous(), c.contiguous()
     n, f = h_flat.shape
     out = torch.empty(n, dtype=torch.int32, device=h_flat.device)
     if n:
-        _call("vq_score_argmin", h_flat.device, h_flat.data_ptr(),
+        call("vq_score_argmin", h_flat.device, h_flat.data_ptr(),
               int(h_flat.dtype == torch.bfloat16), m.data_ptr(), c.data_ptr(),
               out.data_ptr(), n, f, m.shape[1])
         fused_score_argmin.launches += 1
@@ -186,9 +135,9 @@ def fused_nearest_indices(flat_z: torch.Tensor, codebook: torch.Tensor
                           ) -> torch.Tensor:
     """flat_z [N, D] f32, codebook [K, D] -> int32 [N]: argmin_k of
     ||e_k||^2 - 2 z.e_k, first minimum on ties."""
-    if not _on_card(flat_z, codebook):
+    if not on_card(flat_z, codebook):
         return nearest_indices(flat_z, codebook).to(torch.int32)
-    _require(flat_z.dtype == torch.float32,
+    require(flat_z.dtype == torch.float32,
              f"z must be float32 on the card, got {flat_z.dtype}")
     e = codebook.to(torch.float32)
     mt = (-2.0 * e).T.contiguous()  # [D, K]
@@ -198,7 +147,7 @@ def fused_nearest_indices(flat_z: torch.Tensor, codebook: torch.Tensor
     n, d = flat_z.shape
     out = torch.empty(n, dtype=torch.int32, device=flat_z.device)
     if n:
-        _call("vq_nearest_indices", flat_z.device, flat_z.data_ptr(),
+        call("vq_nearest_indices", flat_z.device, flat_z.data_ptr(),
               mt.data_ptr(), esq.data_ptr(), out.data_ptr(), n, d,
               mt.shape[1])
         fused_nearest_indices.launches += 1

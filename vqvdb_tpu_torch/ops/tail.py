@@ -2,11 +2,15 @@
 (counterpart of `vqvdb_tpu/ops/tail.py`).
 
 The tail has no nonlinearity before the head activation, so the map
-(4^3 x 64) -> (8^3 x 1) is one fixed affine operator. It is built exactly
-by pushing the output basis back through the tail's own convs (512 VJPs,
-not 4096 forwards) and applied as `(B, 4096) @ (4096, 512)`. Rows are in
-NDHWC order (d, h, w, c) of the 4^3 x 64 input; the 512 outputs are the
-8^3 voxels in (d, h, w) row-major order.
+(4^3 x C_in) -> (8^3 x C_out) is one fixed affine operator. It is built
+exactly by pushing the output basis back through the tail's own convs (one
+VJP per output, not one forward per input) and applied as one GEMM:
+
+    scalar: (B, 4096) @ (4096, 512)
+    vec3:   (B, 8192) @ (8192, 1536)
+
+Rows are in NDHWC order (d, h, w, c) of the 4^3 x C_in input; the outputs
+are the 8^3 x C_out voxels in the same order.
 
 The GEMM is a plain large product, so it stays `torch.matmul`: the
 features and the operator are rounded to the compute dtype and then
@@ -15,7 +19,6 @@ multiplied in f32, which is the JAX package's bf16 x bf16 -> f32 product.
 
 from __future__ import annotations
 
-import contextlib
 from typing import Dict
 
 import torch
@@ -23,20 +26,13 @@ from torch.func import vjp, vmap
 
 from vqvdb_tpu_torch.core.config import LATENT_VOXELS, LEAF_DIM, ModelConfig
 from vqvdb_tpu_torch.models import blocks
-
-
-def _no_tf32(device: torch.device):
-    """cuDNN runs f32 convs in TF32 by default; the fold must be f32."""
-    if device.type != "cuda":
-        return contextlib.nullcontext()
-    cudnn = torch.backends.cudnn
-    return cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                       deterministic=cudnn.deterministic, allow_tf32=False)
+from vqvdb_tpu_torch.models.vqvae import head_activation
 
 
 def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
                       ) -> Dict[str, torch.Tensor]:
-    """{'k': (4096, 512) f32, 'b': (512,) f32} on the params' device."""
+    """{'k': (64*C_in, 512*C_out) f32, 'b': (512*C_out,) f32} on the params'
+    device."""
     up = {k: v.to(torch.float32) for k, v in decoder_params["up_conv"].items()}
     fin = {k: v.to(torch.float32) for k, v in decoder_params["final"].items()}
     c_in = up["w"].shape[1]
@@ -49,7 +45,7 @@ def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
         return blocks.conv3d(fin, y, padding=1).reshape(-1)
 
     zero = torch.zeros(LATENT_VOXELS * c_in, dtype=torch.float32, device=device)
-    with torch.no_grad(), _no_tf32(device):
+    with torch.no_grad(), blocks.no_tf32(device):
         bias, pullback = vjp(tail_flat, zero)
         basis = torch.eye(bias.shape[0], dtype=torch.float32, device=device)
         # rows of J (d_out, d_in) -> K = J^T (d_in, d_out)
@@ -59,9 +55,9 @@ def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
 
 def apply_decoder_tail(folded: Dict, h: torch.Tensor, cfg: ModelConfig
                        ) -> torch.Tensor:
-    """h (B,4,4,4,64) -> sigmoid activations (B,8,8,8,C) f32."""
+    """h (B,4,4,4,C_in) -> head activations (B,8,8,8,C_out) f32."""
     b = h.shape[0]
     k = folded["k"].to(h.dtype).to(torch.float32)
     logits = h.reshape(b, -1).to(torch.float32) @ k + folded["b"]
     logits = logits.reshape(b, LEAF_DIM, LEAF_DIM, LEAF_DIM, cfg.in_channels)
-    return torch.sigmoid(logits)
+    return head_activation(logits, cfg)

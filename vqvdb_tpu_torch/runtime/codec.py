@@ -9,14 +9,22 @@ without a wait; the host takes a batch's result only after the next batch
 has been enqueued, so host I/O overlaps device work. On the CPU the same
 loop runs synchronously.
 
-Encode:  leaves -> packed encoder features -> score-argmin kernel (the 1x1
-         projection folded in) -> u8 indices.
+Encode:  leaves -> encoder features -> score-argmin kernel (the 1x1
+         projection folded in) -> u8 indices [B,4,4,4]. The reference
+         encoder runs its strided conv folded onto the packed grid
+         (`pack_down_conv`) and, for scalar input, its 16-channel residual
+         block as the fused kernel (`fuse_rb16`).
          With `fuse_proj_quantize=False`: projection -> nearest-code kernel.
-Decode:  u8 indices -> dequantize kernel -> decoder pre-tail -> folded tail
-         GEMM + sigmoid (or the three tail ops with `fuse_decoder_tail=False`).
+         Residual-VQ models (S stages): projection -> per stage the
+         nearest-code and dequantize kernels -> u8 indices [B,4,4,4,S].
+Decode:  u8 indices -> dequantize kernel (once per stage, rows summed) ->
+         decoder pre-tail -> folded tail GEMM + sigmoid / tanh (or the
+         three tail ops with `fuse_decoder_tail=False`).
 
-Not ported yet: `compress_stream`, `decode_stream`, grid/bbox selection,
-the v4-v6 tiers and residuals, and the mesh.
+Every committed `models/*.vqmodel` runs: packed, packed_lite and reference
+encoders, scalar and vec3, one or two quantizer stages. Not ported yet: the
+packed_stem encoder, `compress_stream`, `decode_stream`, grid/bbox
+selection, the v4-v6 tiers and residuals, and the mesh.
 """
 
 from __future__ import annotations
@@ -32,13 +40,16 @@ import torch
 from vqvdb_tpu_torch.core.config import CodecConfig, LEAF_DIM, ModelConfig
 from vqvdb_tpu_torch.core.weights import DeviceLike, params_from_jax
 from vqvdb_tpu_torch.format.vqvdb import GridMetadata, VqvdbReader, VqvdbWriter
+from vqvdb_tpu_torch.models.quantizer import rvq_dequantize, rvq_indices
 from vqvdb_tpu_torch.models.vqvae import (
     check_ported,
     decoder_apply,
     decoder_pre_tail,
     encoder_apply,
     encoder_features,
+    encoder_features_packed_down,
 )
+from vqvdb_tpu_torch.ops.packed import fold_strided_conv
 from vqvdb_tpu_torch.ops.quantize import (
     fold_proj_into_scores,
     fused_dequantize,
@@ -72,7 +83,7 @@ class VQCodec:
     `core.artifact.load_model` returns. It is converted to tensors on
     `device` (default `cuda`; without a card, pass `device="cpu"` or the
     constructor raises). The exact weight rewrites (folded decoder tail,
-    folded projection scores) are computed once here.
+    folded projection scores, packed down conv) are computed once here.
     """
 
     def __init__(self, params: Dict, model_config: ModelConfig,
@@ -90,36 +101,64 @@ class VQCodec:
         if self.ccfg.fuse_decoder_tail:
             self._folded_tail = fold_decoder_tail(self.params["decoder"],
                                                   self.mcfg)
+        # Residual-VQ needs the latent itself for its later stages, so the
+        # projection folds into the scores only for a single-stage model.
         self._score_mc = None
-        if self.ccfg.fuse_proj_quantize:
+        if self.ccfg.fuse_proj_quantize and self.mcfg.num_quantizers == 1:
             proj = params["encoder"]["proj"]
             m, c = fold_proj_into_scores(
                 np.asarray(proj["w"]), np.asarray(proj["b"]),
                 self.params["vq"]["embedding"].cpu().numpy())
             self._score_mc = (m.to(self.device), c.to(self.device))
+        # As in the JAX package, the packed down conv rides on the folded
+        # projection's encode path.
+        self._folded_down = None
+        if (self.ccfg.pack_down_conv and self._score_mc is not None
+                and self.mcfg.encoder_arch == "reference"):
+            down = params["encoder"]["down"]
+            self._folded_down = {
+                k: v.to(self.device) for k, v in fold_strided_conv(
+                    np.asarray(down["w"]), np.asarray(down["b"])).items()}
         self._slots: Dict[str, List[_Slot]] = {}
 
     # -- device steps ----------------------------------------------------
+    def _features(self, x: torch.Tensor) -> torch.Tensor:
+        """Encoder features before the folded projection, as the encode
+        step takes them: [B,8,8,8,C] -> [B,4,4,4,F]."""
+        enc = self.params["encoder"]
+        if self._folded_down is not None:
+            return encoder_features_packed_down(
+                enc, self._folded_down, x, self.mcfg,
+                fuse_rb16=self.ccfg.fuse_rb16)
+        return encoder_features(enc, x, self.mcfg)
+
     @torch.inference_mode()
     def _encode_step(self, leaves: torch.Tensor) -> torch.Tensor:
-        """[B,8,8,8,C] f32 -> [B,4,4,4] uint8."""
+        """[B,8,8,8,C] f32 -> [B,4,4,4] (or [B,4,4,4,S] residual-VQ) uint8."""
         x = leaves.to(self.dtype)
         b = x.shape[0]
         enc = self.params["encoder"]
         if self._score_mc is not None:
-            h = encoder_features(enc, x, self.mcfg)
+            h = self._features(x)
             idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), *self._score_mc)
         else:
             z = encoder_apply(enc, x, self.mcfg)
             flat = z.reshape(-1, self.mcfg.embedding_dim).to(torch.float32)
-            idx = fused_nearest_indices(flat, self.params["vq"]["embedding"])
+            if self.mcfg.num_quantizers > 1:
+                idx = rvq_indices(flat, self.params["vq"]["embedding"])
+            else:
+                idx = fused_nearest_indices(flat, self.params["vq"]["embedding"])
         return idx.reshape((b,) + self.mcfg.index_shape).to(torch.uint8)
 
     @torch.inference_mode()
     def _decode_step(self, indices: torch.Tensor) -> torch.Tensor:
-        """[B,4,4,4] uint8 -> [B,8,8,8,C] f32."""
+        """[B,4,4,4] (or [B,4,4,4,S] residual-VQ) uint8 -> [B,8,8,8,C] f32."""
         b = indices.shape[0]
-        z = fused_dequantize(indices.reshape(-1), self._codebook)
+        if self.mcfg.num_quantizers > 1:
+            z = rvq_dequantize(indices.reshape(-1, self.mcfg.num_quantizers),
+                               self._codebook)
+        else:
+            z = fused_dequantize(indices.reshape(-1), self._codebook)
         z = z.reshape((b,) + self.mcfg.latent_shape + (self.mcfg.embedding_dim,))
         dec = self.params["decoder"]
         if self._folded_tail is not None:
@@ -195,7 +234,8 @@ class VQCodec:
 
     # -- array-level API -------------------------------------------------
     def encode_leaves(self, leaves: np.ndarray) -> np.ndarray:
-        """Encode [N,8,8,8,C] (or [N,8,8,8]) f32 -> [N,4,4,4] u8, batched."""
+        """Encode [N,8,8,8,C] (or [N,8,8,8]) f32 -> [N,4,4,4] u8
+        ([N,4,4,4,S] residual-VQ), batched."""
         leaves = np.asarray(leaves, np.float32)
         if leaves.ndim == 4:
             leaves = leaves[..., None]
@@ -206,7 +246,7 @@ class VQCodec:
         return out
 
     def decode_indices(self, indices: np.ndarray) -> np.ndarray:
-        """Decode [N,4,4,4] u8 -> [N,8,8,8,C] f32, batched."""
+        """Decode [N,4,4,4] (or [N,4,4,4,S]) u8 -> [N,8,8,8,C] f32, batched."""
         indices = np.asarray(indices, self.mcfg.index_dtype)
         out = np.empty((indices.shape[0], LEAF_DIM, LEAF_DIM, LEAF_DIM,
                         self.mcfg.in_channels), np.float32)
