@@ -14,7 +14,11 @@ Phases, in this order; any failure raises and the script exits non-zero:
      read just after.
   4. kernels: each kernel against its plain PyTorch version at the codec's
      batch (4096 leaves = 262,144 latent rows), on the flagship model's own
-     features; kernel, plain, bound and library-call times.
+     features; kernel, plain, bound and library-call times. The score
+     kernel's indices must equal the argmin of plain f32 scores except on
+     near-ties, miss the argmin of f64 scores on at most 0.5% of rows
+     (plain f32's own count is logged beside it), and equal the plain
+     version's on rows with a NaN or an infinity planted.
   5. reference-arch path: `models/scalar_reference.vqmodel` at full width on
      the same --leaves leaves, default CodecConfig: compress -> v3 ->
      decompress with the counters reset before and read after each half
@@ -38,9 +42,10 @@ Phases, in this order; any failure raises and the script exits non-zero:
      scores, and its later stages (which code another residual) are skipped.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. --profile DIR also times one
-steady encode and decode batch of the flagship and of the reference arch
-under torch.profiler and writes the profiler tables and the nvcc/ptxas
-report to DIR; without it no file is written outside a temporary directory.
+steady encode and decode batch of the flagship, the reference arch, the
+residual-VQ model and the vec3 model under torch.profiler and writes the
+profiler tables and the nvcc/ptxas report to DIR; without it no file is
+written outside a temporary directory.
 """
 
 from __future__ import annotations
@@ -57,9 +62,11 @@ REPO = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12  # CUDA-core f32: the kernels compute in f32 by spec
+F32_FLOPS = 67e12  # CUDA-core f32
+BF16_FLOPS = 989e12  # tensor cores, dense bf16 with f32 sums
 BATCH_ROWS = 4096 * 64
 NEAR_TIE_REL = 1e-4  # best-vs-runner-up score gap, relative to |best|
+MAX_MISMATCH_SHARE = 0.005  # of rows off the f64 argmin: more means too few terms
 PARITY_ATOL = 1e-4  # card vs CPU decoded leaves, f32 with TF32 off
 MIN_PSNR_DB = 30.0
 MIN_PSNR_VEC3_DB = 25.0  # against peak 1.0 on a [-1, 1] field
@@ -77,21 +84,33 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
-    """Mean device time of fn() over `iters` back-to-back calls (CUDA events)."""
+def cuda_ms(fn, iters: int = 50, warmup: int = 5, graph: bool = False) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls (CUDA events).
+    With `graph` the calls are captured once into a CUDA graph and replayed,
+    so a kernel of tens of microseconds is timed without the host's enqueue
+    time between launches."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    run, reps = (lambda: [fn() for _ in range(iters)]), 1
+    if graph:
+        stream = torch.cuda.Stream()
+        cuda_graph = torch.cuda.CUDAGraph()
+        with torch.cuda.stream(stream), torch.cuda.graph(cuda_graph, stream=stream):
+            run()
+        run, reps = cuda_graph.replay, 4
+        run()
+        torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(iters):
-        fn()
+    for _ in range(reps):
+        run()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / (iters * reps)
 
 
 def smooth_field(seed: int, n_leaves: int, channels: int = 1):
@@ -149,6 +168,59 @@ def index_check(name, got, ref_scores):
     return int(bad.sum()), int(ties.sum()), regret
 
 
+def terms_check(name, got, plain_scores, exact_scores):
+    """Whether the split products keep enough terms: indices `got` against
+    the argmin of the same scores in f64. Plain f32 scores miss that argmin
+    on some near-tie rows themselves, so the count against them cannot tell a
+    kernel that rounds differently from one that rounds worse; the f64 argmin
+    can. Fails above MAX_MISMATCH_SHARE of the rows.
+    Returns (rows where the kernel misses, rows where plain f32 misses)."""
+    best = exact_scores.argmin(1)
+    missed = int((got.long() != best).sum())
+    plain_missed = int((plain_scores.argmin(1) != best).sum())
+    if missed > MAX_MISMATCH_SHARE * got.numel():
+        raise AssertionError(
+            f"{name}: {missed} of {got.numel()} rows miss the f64 argmin, more than "
+            f"{MAX_MISMATCH_SHARE:.1%} (plain f32 scores miss it on {plain_missed})")
+    return missed, plain_missed
+
+
+def score_bound(n, f, k, row_bytes, products):
+    """The score kernel's bound in ms: rows, M and c read once and the indices
+    written once at the memory rate, or `products` bf16 MMAs of 2 n f k
+    operations at the tensor cores' rate; and the f32 CUDA-core bound that
+    the first version of the kernel was held to."""
+    nbytes = n * f * row_bytes + f * k * 4 + k * 4 + n * 4
+    flops = 2.0 * n * f * k
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, products * flops / BF16_FLOPS
+    return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
+                bound_by="operations" if by_ops > by_bytes else "bytes",
+                products=products,
+                f32_core_bound_ms=max(by_bytes, flops / F32_FLOPS) * 1e3)
+
+
+def non_finite_check(name, rows, fn, plain):
+    """Rows with a NaN, +inf, -inf or both infinities planted, spread over
+    the batch: the kernel's indices there must equal the plain version's."""
+    import torch
+
+    x = rows.clone()
+    n = x.shape[0]
+    planted = []
+    for start, col, val in ((5, 3, float("nan")), (17, 1, float("inf")),
+                            (29, 2, float("-inf")), (41, 0, float("inf"))):
+        idx = torch.arange(start, n, 1009, device=x.device)
+        x[idx, col] = val
+        planted.append(idx)
+    x[planted[3], 4] = float("-inf")  # both infinities in one row
+    sel = torch.cat(planted)
+    got, want = fn(x)[sel].long(), plain(x)[sel].long()
+    if not torch.equal(got, want):
+        raise AssertionError(f"{name}: {int((got != want).sum())} of {sel.numel()} rows "
+                             "with a NaN or an infinity differ from the plain version")
+    return sel.numel()
+
+
 def kernel_phase(codec, grid):
     """Phase 4: each kernel against its plain version at main-path shapes."""
     import torch
@@ -193,7 +265,7 @@ def kernel_phase(codec, grid):
             source="vqvdb_tpu_torch/csrc/dequantize.cu",
             replaces="vqvdb_tpu/ops/quantize.py:110",
             max_abs_err=err,
-            ms=cuda_ms(lambda: q.fused_dequantize(idx_u8, cb)),
+            ms=cuda_ms(lambda: q.fused_dequantize(idx_u8, cb), graph=True),
             plain_ms=cuda_ms(lambda: dequantize(idx_u8, cb)),
             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
             library_ms=cuda_ms(lambda: cb.index_select(0, idx_lib)),
@@ -201,26 +273,34 @@ def kernel_phase(codec, grid):
 
         # -- score-argmin: h [N, 64] (f32 check, bf16 as the encode step runs)
         rows.append(score_argmin_row("score_argmin", h_f32, h_bf16, m, c))
+        rows.append(score_argmin_row("score_argmin_f32", h_f32, h_bf16, m, c, timed=h_f32))
 
         # -- nearest: z [N, 128] f32 against the codebook
         scores = nearest_scores(z, emb)
-        mis, ties, regret = index_check("nearest_indices", q.fused_nearest_indices(z, emb), scores)
+        got = q.fused_nearest_indices(z, emb)
+        mis, ties, regret = index_check("nearest_indices", got, scores)
+        e64 = emb.double()
+        missed, plain_missed = terms_check(
+            "nearest_indices", got, scores,
+            (e64 * e64).sum(1)[None, :] - 2.0 * (z.double() @ e64.T))
+        planted = non_finite_check("nearest_indices", z,
+                                   lambda x: q.fused_nearest_indices(x, emb),
+                                   lambda x: nearest_indices(x, emb))
         esq = (emb * emb).sum(1)
         mt = -2.0 * emb.T
-        d = z.shape[1]
-        nbytes = BATCH_ROWS * d * 4 + emb.numel() * 4 + BATCH_ROWS * 4
-        flops = 2.0 * BATCH_ROWS * d * emb.shape[0]
+        prep = q.prepare_codebook(emb)
         rows.append(dict(
             name="nearest_indices", route="cuda",
-            source="vqvdb_tpu_torch/csrc/score_argmin.cu",
+            source="vqvdb_tpu_torch/csrc/score_argmin_tc.cu",
             replaces="vqvdb_tpu/ops/quantize.py:41",
-            max_abs_err=regret,
-            ms=cuda_ms(lambda: q.fused_nearest_indices(z, emb)),
+            max_abs_err=regret, mismatches=mis,
+            ms=cuda_ms(lambda: q.fused_nearest_indices(z, prep), graph=True),
             plain_ms=cuda_ms(lambda: nearest_indices(z, emb)),
-            bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-            bound_by="operations" if flops / F32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
+            **score_bound(BATCH_ROWS, z.shape[1], emb.shape[0], 4, products=6),
             library_ms=cuda_ms(lambda: torch.addmm(esq, z, mt).argmin(1)),
-            check=f"f32: {mis} mismatches / {ties} near-tie rows"))
+            check=f"f32: {mis} mismatches / {ties} near-tie rows, max regret {regret:.3g}, "
+                  f"off the f64 argmin {missed} (plain f32: {plain_missed}); "
+                  f"{planted} non-finite rows equal plain"))
     return rows
 
 
@@ -419,31 +499,42 @@ def side_paths(seed: int, n_leaves: int, grid, workdir: Path):
     return codecs, vgrid, out
 
 
-def score_argmin_row(name, h_f32, h_bf16, m, c):
+def score_argmin_row(name, h_f32, h_bf16, m, c, timed=None):
     """One score-argmin row of the kernels line: f32 and bf16 rows [N, F]
-    against the plain f32 scores, then the bf16 times."""
+    against the plain f32 scores and on planted non-finite rows, then the
+    times of `timed` (default: the bf16 rows) with M prepared once, as the
+    codec calls the kernel."""
     import torch
 
     from vqvdb_tpu_torch.ops import quantize as q
 
-    mis, ties, regret = index_check(name, q.fused_score_argmin(h_f32, m, c), h_f32 @ m + c)
-    mis_b, ties_b, regret_b = index_check(
-        f"{name} bf16", q.fused_score_argmin(h_bf16, m, c), h_bf16.float() @ m + c)
+    stats = []
+    for label, rows in ((name, h_f32), (f"{name} bf16", h_bf16)):
+        got, plain = q.fused_score_argmin(rows, m, c), rows.float() @ m + c
+        stats.append(index_check(label, got, plain)
+                     + terms_check(label, got, plain, rows.double() @ m.double() + c.double()))
+    (mis, ties, regret, missed, plain_missed), (mis_b, ties_b, regret_b, missed_b, plain_missed_b) = stats
+    planted = sum(non_finite_check(f"{name} {h.dtype}", h,
+                                   lambda x: q.fused_score_argmin(x, m, c),
+                                   lambda x: q.score_argmin_plain(x, m, c))
+                  for h in (h_f32, h_bf16))
+    h = h_bf16 if timed is None else timed
     f, k = m.shape
-    n = h_bf16.shape[0]
-    nbytes = n * f * 2 + m.numel() * 4 + k * 4 + n * 4
-    flops = 2.0 * n * f * k
+    prep = q.prepare_scores(m, c)
+    cc, hf = c.reshape(-1), h.float()
     return dict(
-        name=name, route="cuda", source="vqvdb_tpu_torch/csrc/score_argmin.cu",
+        name=name, route="cuda", source="vqvdb_tpu_torch/csrc/score_argmin_tc.cu",
         replaces="vqvdb_tpu/ops/quantize.py:187",
-        max_abs_err=max(regret, regret_b),
-        ms=cuda_ms(lambda: q.fused_score_argmin(h_bf16, m, c)),
-        plain_ms=cuda_ms(lambda: q.score_argmin_plain(h_bf16, m, c)),
-        bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-        bound_by="operations" if flops / F32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
-        library_ms=cuda_ms(lambda: torch.addmm(c, h_bf16.float(), m).argmin(1)),
-        check=f"F={f}; f32: {mis} mismatches / {ties} near-tie rows; "
-              f"bf16: {mis_b} / {ties_b}")
+        max_abs_err=max(regret, regret_b), mismatches=max(mis, mis_b),
+        ms=cuda_ms(lambda: q.fused_score_argmin(h, prep), graph=True),
+        plain_ms=cuda_ms(lambda: q.score_argmin_plain(h, m, c)),
+        **score_bound(h.shape[0], f, k, h.element_size(),
+                      products=3 if h.dtype == torch.bfloat16 else 6),
+        library_ms=cuda_ms(lambda: torch.addmm(cc, hf, m).argmin(1)),
+        check=f"F={f}, timed with {h.dtype} rows; f32: {mis} mismatches / {ties} near-tie "
+              f"rows, max regret {regret:.3g}, off the f64 argmin {missed} (plain f32: "
+              f"{plain_missed}); bf16: {mis_b} / {ties_b}, {regret_b:.3g}, {missed_b} "
+              f"({plain_missed_b}); {planted} non-finite rows equal plain")
 
 
 def side_kernel_phase(ref_codec, grid, vec_codec, vgrid):
@@ -658,8 +749,11 @@ def main() -> int:
         kernels += log_kernel_rows(
             side_kernel_phase(ref_codec, grid, side["vec3"][2], vgrid))
         if args.profile is not None:
-            prof = profile_batches(ref_codec, grid, args.profile, "reference_")
-            log(f"[profile reference] {json.dumps(prof)}")
+            for label, codec, data in (("reference", ref_codec, grid),
+                                       ("scalar_rvq2", side["scalar_rvq2"][2], grid),
+                                       ("vec3", side["vec3"][2], vgrid)):
+                prof = profile_batches(codec, data, args.profile, f"{label}_")
+                log(f"[profile {label}] {json.dumps(prof)}")
 
         torch.backends.cudnn.allow_tf32 = False
         unf = unfused_path(tree, cfg, grid_subset(grid, 16384 + 777), workdir)
@@ -676,6 +770,7 @@ def main() -> int:
     # shape and type, counters reset just before that path and read just after.
     launches = {"dequantize": main_res["decode_launches"]["dequantize"],
                 "score_argmin": main_res["encode_launches"]["score_argmin"],
+                "score_argmin_f32": par["scalar"]["launches"]["score_argmin"],
                 "nearest_indices": unf["launches"]["nearest_indices"]}
     launches["fused_rb"] = ref_res["encode_launches"]["fused_rb"]
     launches["fused_rb_f32"] = par["scalar_reference"]["launches"]["fused_rb"]

@@ -6,9 +6,12 @@ neither JAX nor the JAX package, so it runs where only PyTorch is installed:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
 
 For the quantizer kernels the inputs are small integers, so every product
-and sum is exact in f32 (and TF32) and indices must be equal, ties going to
-the first minimum; ragged row counts and out-of-range dequantize indices are
-included. The fused residual block is held to its plain version within
+and sum is exact in f32 (and in the score kernel's bf16 terms: an integer
+up to 256 is its own hi term) and indices must be equal, ties going to the
+first minimum; ragged row counts and out-of-range dequantize indices are
+included. With real-valued inputs the score kernel is held to the argmin of
+f64 scores except on rows whose two best differ by less than 1e-5 relative
+(f32 sums in another order). The fused residual block is held to its plain version within
 2e-5 in f32 (sums in another order) and within one bf16 step in bf16 (both
 compute in f32 and round once at the end).
 """
@@ -32,14 +35,21 @@ def _rand(rng, *shape):
 
 
 def _tied_scores_inputs(rng, n, f, k):
-    """h, M, c of small integers with columns 9 and 200 identical and
+    """h, M, c of small integers with columns 9 and k - 3 identical and
     winning every row, so each row ties exactly between them."""
     h = rng.integers(-3, 4, size=(n, f)).astype(np.float32)
     m = rng.integers(-3, 4, size=(f, k)).astype(np.float32)
     c = rng.integers(-40, 40, size=(1, k)).astype(np.float32)
-    m[:, 200] = m[:, 9]
-    c[0, 9] = c[0, 200] = -10000.0
+    m[:, k - 3] = m[:, 9]
+    c[0, 9] = c[0, k - 3] = -10000.0
     return h, m, c
+
+
+def _assert_argmin_off_near_ties(got, exact_scores):
+    two = torch.topk(exact_scores, 2, dim=1, largest=False).values
+    loose = (two[:, 1] - two[:, 0]) < 1e-5 * two[:, 0].abs().clamp(min=1.0)
+    bad = got.long() != exact_scores.argmin(1)
+    assert not (bad & ~loose).any(), f"{int((bad & ~loose).sum())} rows differ off near-ties"
 
 
 def _card():
@@ -67,30 +77,102 @@ def test_card_dequantize(rng, dtype, idx_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_card_score_argmin_ties_and_ragged_rows(rng, dtype):
+@pytest.mark.parametrize("n", [1, 63, 1000, 262161])
+@pytest.mark.parametrize("k", [64, 128, 192, 256])
+@pytest.mark.parametrize("f", [8, 32, 64, 128])
+def test_card_score_argmin_ties_and_ragged_rows(rng, f, k, n, dtype):
     dev = _card()
     h, m, c = (torch.from_numpy(a).to(dev)
-               for a in _tied_scores_inputs(rng, 1000, 64, 256))
+               for a in _tied_scores_inputs(rng, n, f, k))
     h = h.to(dtype)  # small integers are exact in bf16
+    launches = q.fused_score_argmin.launches
     got = q.fused_score_argmin(h, m, c)
+    torch.cuda.synchronize()
+    assert q.fused_score_argmin.launches == launches + 1
+    assert got.dtype == torch.int32 and got.shape == (n,)
     assert torch.equal(got, q.score_argmin_plain(h, m, c))
     assert (got == 9).all()
     c2 = c.clone()
     c2[0, [5, 40]] = float("nan")
     assert (q.fused_score_argmin(h, m, c2) == 5).all()
+    # M prepared once gives the same indices as M split on the fly
+    assert torch.equal(q.fused_score_argmin(h, q.prepare_scores(m, c)), got)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [64, 128, 256])
-def test_card_nearest(rng, k):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f,k,n", [(8, 64, 1000), (32, 256, 262161), (64, 256, 262161),
+                                   (64, 192, 5000), (128, 256, 262161), (128, 128, 63)])
+def test_card_score_argmin_real_values(rng, f, k, n, dtype):
     dev = _card()
-    cb = torch.from_numpy(rng.integers(-2, 3, size=(k, 128)).astype(np.float32)).to(dev)
+    h = torch.from_numpy(_rand(rng, n, f)).to(dev, dtype)
+    m = torch.from_numpy(_rand(rng, f, k)).to(dev)
+    c = torch.from_numpy(_rand(rng, 1, k)).to(dev)
+    got = q.fused_score_argmin(h, m, c)
+    _assert_argmin_off_near_ties(got, h.double() @ m.double() + c.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("f", [32, 64, 128])
+def test_card_score_argmin_non_finite_rows(rng, f, dtype):
+    """A NaN gives NaN for every code, hence code 0; an infinity gives +-inf
+    scores (NaN only where the plain version has one too: M zero there, or
+    both infinities meeting in one score)."""
+    dev = _card()
+    n, k = 3000, 256
+    h = _rand(rng, n, f)
+    h[0::7, 3] = np.nan
+    h[1::7, 5] = np.inf
+    h[2::7, 1] = -np.inf
+    h[3::7, 0] = np.inf
+    h[3::7, 2] = -np.inf
+    m = _rand(rng, f, k)
+    m[5, 17] = 0.0  # inf * 0: NaN in both versions
+    m[1, ::2] = np.round(m[1, ::2] * 4) / 4  # mid = lo = 0: must not turn inf into NaN
+    h, m = torch.from_numpy(h).to(dev, dtype), torch.from_numpy(m).to(dev)
+    c = torch.from_numpy(_rand(rng, 1, k)).to(dev)
+    got = q.fused_score_argmin(h, m, c)
+    want = q.score_argmin_plain(h, m, c)
+    special = torch.arange(n, device=dev) % 7 < 4
+    assert torch.equal(got[special], want[special])
+    assert (got[0::7] == 0).all() and (got[1::7] == 17).all()
+    _assert_argmin_off_near_ties(got[~special],
+                                 h[~special].double() @ m.double() + c.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 1000, 262161])
+@pytest.mark.parametrize("k", [64, 128, 192, 256])
+@pytest.mark.parametrize("d", [8, 32, 64, 128])
+def test_card_nearest(rng, d, k, n):
+    dev = _card()
+    cb = torch.from_numpy(rng.integers(-2, 3, size=(k, d)).astype(np.float32)).to(dev)
     cb[k - 1] = cb[3]
-    z = torch.from_numpy(rng.integers(-2, 3, size=(777, 128)).astype(np.float32)).to(dev)
+    z = torch.from_numpy(rng.integers(-2, 3, size=(n, d)).astype(np.float32)).to(dev)
     z[0] = cb[3]
+    launches = q.fused_nearest_indices.launches
     got = q.fused_nearest_indices(z, cb)
+    torch.cuda.synchronize()
+    assert q.fused_nearest_indices.launches == launches + 1
     assert torch.equal(got.long(), nearest_indices(z, cb))
-    assert got[0] == 3
+    assert got[0] <= 3 and torch.equal(cb[got[0]], cb[3])
+    assert torch.equal(q.fused_nearest_indices(z, q.prepare_codebook(cb)), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k,n", [(128, 256, 262161), (32, 64, 777), (64, 192, 4096)])
+def test_card_nearest_real_values(rng, d, k, n):
+    dev = _card()
+    cb = torch.from_numpy(_rand(rng, k, d)).to(dev)
+    z = torch.from_numpy(_rand(rng, n, d)).to(dev)
+    z[5, 7] = float("nan")
+    got = q.fused_nearest_indices(z, cb)
+    assert got[5] == 0
+    e = cb.double()
+    keep = torch.arange(n, device=dev) != 5
+    _assert_argmin_off_near_ties(
+        got[keep], (e * e).sum(1)[None, :] - 2.0 * (z[keep].double() @ e.T))
 
 
 @pytest.mark.cuda
@@ -107,6 +189,19 @@ def test_card_wrappers_raise_instead_of_falling_back(rng):
                              torch.zeros(1, 100, device=dev))
     with pytest.raises(ValueError):  # z must be f32 on the card
         q.fused_nearest_indices(torch.zeros(8, 128, device=dev, dtype=torch.bfloat16), cb)
+    with pytest.raises(ValueError):  # f16 rows are not taken
+        q.fused_score_argmin(h.half(), torch.zeros(64, 64, device=dev),
+                             torch.zeros(1, 64, device=dev))
+    with pytest.raises(ValueError):  # rows on the card, M on the CPU
+        q.fused_score_argmin(h, torch.zeros(64, 64), torch.zeros(1, 64))
+    with pytest.raises(ValueError):  # rows of another depth than M
+        q.fused_score_argmin(torch.zeros(8, 32, device=dev), torch.zeros(64, 64, device=dev),
+                             torch.zeros(1, 64, device=dev))
+    with pytest.raises(ValueError):  # f32 rows too deep for the block's shared memory
+        q.fused_score_argmin(torch.zeros(8, 512, device=dev), torch.zeros(512, 256, device=dev),
+                             torch.zeros(1, 256, device=dev))
+    assert q.fused_score_argmin(h[:0], torch.zeros(64, 64, device=dev),
+                                torch.zeros(1, 64, device=dev)).shape == (0,)
 
 
 def _rb_params(rng, dev, c=16):

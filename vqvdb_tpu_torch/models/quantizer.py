@@ -15,6 +15,8 @@ their plain versions run.
 
 from __future__ import annotations
 
+from typing import Optional, Sequence
+
 import torch
 
 
@@ -44,15 +46,18 @@ def dequantize(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
                                                          device=rows.device))
 
 
-def rvq_indices(flat_z: torch.Tensor, codebooks: torch.Tensor) -> torch.Tensor:
+def rvq_indices(flat_z: torch.Tensor, codebooks: torch.Tensor,
+                prepared: Optional[Sequence] = None) -> torch.Tensor:
     """flat_z [N, D], codebooks [S, K, D] -> int32 [N, S]: per stage the
-    nearest code to the f32 residual, whose row is then subtracted."""
+    nearest code to the f32 residual, whose row is then subtracted.
+    `prepared` holds each stage's `ops.quantize.prepare_codebook`, which
+    saves splitting the codebooks on every call."""
     from vqvdb_tpu_torch.ops.quantize import fused_dequantize, fused_nearest_indices
 
     res = flat_z.to(torch.float32)
     idx = []
-    for codebook in codebooks.to(torch.float32):
-        i = fused_nearest_indices(res, codebook)
+    for s, codebook in enumerate(codebooks.to(torch.float32)):
+        i = fused_nearest_indices(res, prepared[s] if prepared is not None else codebook)
         idx.append(i)
         res = res - fused_dequantize(i, codebook)
     return torch.stack(idx, dim=-1)

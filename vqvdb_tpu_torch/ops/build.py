@@ -29,7 +29,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("dequantize", "score_argmin", "fused_rb")
+SOURCES = ("dequantize", "score_argmin_tc", "fused_rb")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -37,8 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> (source, argument types before the trailing stream)
 ENTRY_POINTS = {
     "vq_dequantize": ("dequantize", (_P, _I, _P, _P, _I, _I, _I)),
-    "vq_score_argmin": ("score_argmin", (_P, _I, _P, _P, _P, _I, _I, _I)),
-    "vq_nearest_indices": ("score_argmin", (_P, _P, _P, _P, _I, _I, _I)),
+    "vq_score_argmin": ("score_argmin_tc", (_P, _I, _P, _P, _P, _I, _I, _I)),
+    "vq_nearest_indices": ("score_argmin_tc", (_P, _P, _P, _P, _I, _I, _I)),
     "vq_residual_block16": ("fused_rb", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F)),
 }
 

@@ -4,8 +4,12 @@
 Three wrappers, one per TPU kernel of the JAX package:
 
   fused_dequantize       csrc/dequantize.cu    indices -> codebook rows
-  fused_score_argmin     csrc/score_argmin.cu  argmin_k(h @ M + c)
-  fused_nearest_indices  csrc/score_argmin.cu  argmin_k(||e||^2 - 2 z.e)
+  fused_score_argmin     csrc/score_argmin_tc.cu  argmin_k(h @ M + c)
+  fused_nearest_indices  csrc/score_argmin_tc.cu  argmin_k(||e||^2 - 2 z.e)
+
+The last two share one tensor-core kernel that takes M split into bf16
+terms (`prepare_scores`, `prepare_codebook`: made once per model by the
+codec, or on the fly when a wrapper is handed raw tensors).
 
 On a CPU tensor a wrapper returns its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its kernel
@@ -16,7 +20,8 @@ dtype on both paths.
 
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -93,10 +98,111 @@ def score_argmin_plain(h_flat: torch.Tensor, m: torch.Tensor,
     return torch.argmin(scores, dim=1).to(torch.int32)
 
 
-def _check_scores(x: torch.Tensor, m: torch.Tensor, c: torch.Tensor) -> None:
-    require(x.dim() == 2 and m.dim() == 2 and m.shape[0] == x.shape[1],
-             f"want rows [N, F] and M [F, K], got {tuple(x.shape)} and "
-             f"{tuple(m.shape)}")
+# ---------------------------------------------------------------------------
+# Split-bf16 products: the kernel's arithmetic, and its prepared B operand
+# ---------------------------------------------------------------------------
+#
+# The kernel multiplies on the bf16 tensor cores. An f32 value is the exact
+# sum of three bf16 terms hi + mid + lo; M is split once per model, an f32 row
+# in the kernel's registers. A bf16 row takes 3 products per score, an f32 row
+# the 6 products of order <= 2, the small ones first in every depth chunk.
+
+CHUNK = 32  # depth of one chunk of the B operand: two k16 MMA steps
+# (row term, M term) of each product, in the order they start; terms are 0 hi, 1 mid,
+# 2 lo, and row term 3 is hi with its non-finite values zeroed.
+PRODUCTS_BF16_ROWS = ((3, 2), (3, 1), (0, 0))
+PRODUCTS_F32_ROWS = ((2, 0), (1, 1), (3, 2), (1, 0), (3, 1), (0, 0))
+
+
+def split_bf16(x: torch.Tensor, terms: int = 3) -> Tuple[torch.Tensor, ...]:
+    """x f32 -> `terms` bf16 tensors whose f32 sum rebuilds x (bit for bit
+    with three terms, barring underflow of the last). Where the first term is
+    not finite (x is NaN or +-inf, or rounds up to inf) the others are zero."""
+    x = x.to(torch.float32)
+    out = []
+    rest = x
+    for i in range(terms):
+        term = rest.to(torch.bfloat16)
+        out.append(term)
+        rest = rest - term.to(torch.float32)
+        if i == 0:
+            rest = torch.where(torch.isfinite(term), rest, torch.zeros_like(rest))
+    return tuple(out)
+
+
+def _pad_depth(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Zero-pad dimension `dim` (0 or 1 of a matrix) to a multiple of CHUNK."""
+    pad = -x.shape[dim] % CHUNK
+    if not pad:
+        return x
+    return torch.nn.functional.pad(x, (0, pad) if dim == 1 else (0, 0, 0, pad))
+
+
+@dataclasses.dataclass(frozen=True)
+class PreparedScores:
+    """M [F, K] and c [K] in f32 with the kernel's B operand: the three bf16
+    terms of M, depth zero-padded to a multiple of 32, in the byte order of
+    the kernel's shared memory, [F/32 chunks, 3 terms, 2 steps, K/8 code
+    groups, 2 depth halves, 8 codes, 8 depths]: 8 x 8 core matrices of 128
+    contiguous bytes, K-major. A thread of the kernel reads depths
+    32 d + 8 t .. + 7 of its row (t its lane in the quad) and uses values
+    4u .. 4u + 3 in step u, the first pair as MMA depths 2t, 2t + 1 and the
+    second as 2t + 8, 2t + 9, so MMA depth 8 half + 2 t + i of step u of
+    chunk d is true depth 32 d + 8 t + 4 u + 2 half + i. `codebook` is set
+    when M = -2 E^T, c = ||e||^2 were made from one."""
+    m: torch.Tensor
+    c: torch.Tensor
+    operand: torch.Tensor
+    codebook: Optional[torch.Tensor] = None
+
+
+def prepare_scores(m: torch.Tensor, c: torch.Tensor,
+                   codebook: Optional[torch.Tensor] = None) -> PreparedScores:
+    """M [F, K] f32, c [K] or [1, K] f32 -> PreparedScores on M's device."""
+    _check_scores(m, c)
+    k = m.shape[1]
+    terms = torch.stack(split_bf16(_pad_depth(m, 0)))  # [3, Fp, K]
+    # depth -> (chunk d, lane t, step u, half, i); codes -> (group, code)
+    t = terms.reshape(3, -1, 4, 2, 2, 2, k // 8, 8)
+    # -> [d, term, u, group, half, code, t, i]; (t, i) merge into 2 t + i
+    operand = t.permute(1, 0, 3, 6, 4, 7, 2, 5).reshape(-1, 3, 2, k // 8, 2, 8, 8)
+    return PreparedScores(m.contiguous(), c.reshape(-1).contiguous(),
+                          operand.contiguous(), codebook)
+
+
+def prepare_codebook(codebook: torch.Tensor) -> PreparedScores:
+    """codebook [K, D] -> the nearest-code search as scores:
+    M = -2 E^T [D, K], c = ||e||^2."""
+    e = codebook.to(torch.float32)
+    return prepare_scores((-2.0 * e).T.contiguous(), (e * e).sum(dim=1), e)
+
+
+def score_argmin_split_plain(h_flat: torch.Tensor, m: torch.Tensor,
+                             c: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic, term by term in PyTorch: bf16 terms, exact
+    products, f32 sums chunk by chunk with the small products first, c added
+    last. int32 [N]. (The tensor cores sum inside a product in their own
+    order, so scores agree to f32 rounding, not bit for bit.)"""
+    m_terms = [x.to(torch.float32) for x in split_bf16(_pad_depth(m, 0))]
+    if h_flat.dtype == torch.bfloat16:
+        h32 = _pad_depth(h_flat.to(torch.float32), 1)
+        h_terms = [h32, None, None]
+        products = PRODUCTS_BF16_ROWS
+    else:
+        h_terms = [x.to(torch.float32)
+                   for x in split_bf16(_pad_depth(h_flat.to(torch.float32), 1))]
+        products = PRODUCTS_F32_ROWS
+    h_terms.append(torch.where(torch.isfinite(h_terms[0]), h_terms[0],
+                               torch.zeros_like(h_terms[0])))
+    scores = torch.zeros((h_flat.shape[0], m.shape[1]), dtype=torch.float32)
+    for d in range(0, m_terms[0].shape[0], CHUNK):
+        for ht, mt in products:
+            scores = scores + h_terms[ht][:, d: d + CHUNK] @ m_terms[mt][d: d + CHUNK]
+    return torch.argmin(scores + c.reshape(1, -1), dim=1).to(torch.int32)
+
+
+def _check_scores(m: torch.Tensor, c: torch.Tensor) -> None:
+    require(m.dim() == 2, f"want M [F, K], got {tuple(m.shape)}")
     k = m.shape[1]
     require(c.numel() == k, f"c has {c.numel()} entries, M has {k} columns")
     require(k % 64 == 0 and 64 <= k <= 256,
@@ -105,23 +211,46 @@ def _check_scores(x: torch.Tensor, m: torch.Tensor, c: torch.Tensor) -> None:
              "M and c must be float32")
 
 
-def fused_score_argmin(h_flat: torch.Tensor, m: torch.Tensor,
-                       c: torch.Tensor) -> torch.Tensor:
-    """h_flat [N, F] (bf16 or f32), M [F, K] f32, c [1, K] f32 -> int32 [N]."""
-    if not on_card(h_flat, m, c):
-        return score_argmin_plain(h_flat, m, c)
-    _check_scores(h_flat, m, c)
+SMEM_LIMIT = 232448  # bytes of shared memory a block may take on the H100
+
+
+def _launch_scores(entry: str, wrapper, rows: torch.Tensor, prep: PreparedScores,
+                   *flags: int) -> torch.Tensor:
+    """Checks shared by the two entry points, then the launch."""
+    f, k = prep.m.shape
+    require(rows.dim() == 2 and rows.shape[1] == f,
+             f"want rows [N, {f}] for M [{f}, {k}], got {tuple(rows.shape)}")
+    rows = _pad_depth(rows, 1).contiguous()
+    n, fp = rows.shape
+    require(rows.data_ptr() % 16 == 0, "rows are not 16-byte aligned")
+    # two stages of 64 rows for each of two warpgroups, c, barriers, and at
+    # least a two-chunk ring of the B operand
+    need = 4 * 64 * fp * rows.element_size() + 4 * k + 192 + 2 * 192 * k
+    require(need <= SMEM_LIMIT, f"rows of depth {f} need {need} B of shared "
+             f"memory, the card gives a block {SMEM_LIMIT}")
+    out = torch.empty(n, dtype=torch.int32, device=rows.device)
+    if n:
+        call(entry, rows.device, rows.data_ptr(), *flags, prep.operand.data_ptr(),
+              prep.c.data_ptr(), out.data_ptr(), n, fp, k)
+        wrapper.launches += 1
+    return out
+
+
+def fused_score_argmin(h_flat: torch.Tensor,
+                       m: Union[torch.Tensor, PreparedScores],
+                       c: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_flat [N, F] (bf16 or f32), M [F, K] f32, c [1, K] f32 -> int32 [N].
+    `m` may be the PreparedScores of (M, c), which saves splitting M on
+    every call; `c` is then left out."""
+    prepared = isinstance(m, PreparedScores)
+    require(prepared == (c is None), "pass M and c, or PreparedScores alone")
+    if not on_card(h_flat, m.operand if prepared else m, m.c if prepared else c):
+        return score_argmin_plain(h_flat, *((m.m, m.c) if prepared else (m, c)))
     require(h_flat.dtype in (torch.float32, torch.bfloat16),
              f"h must be float32 or bfloat16, got {h_flat.dtype}")
-    h_flat, m, c = h_flat.contiguous(), m.contiguous(), c.contiguous()
-    n, f = h_flat.shape
-    out = torch.empty(n, dtype=torch.int32, device=h_flat.device)
-    if n:
-        call("vq_score_argmin", h_flat.device, h_flat.data_ptr(),
-              int(h_flat.dtype == torch.bfloat16), m.data_ptr(), c.data_ptr(),
-              out.data_ptr(), n, f, m.shape[1])
-        fused_score_argmin.launches += 1
-    return out
+    prep = m if prepared else prepare_scores(m, c)
+    return _launch_scores("vq_score_argmin", fused_score_argmin, h_flat, prep,
+                          int(h_flat.dtype == torch.bfloat16))
 
 
 fused_score_argmin.launches = 0
@@ -131,27 +260,20 @@ fused_score_argmin.launches = 0
 # Nearest-code search
 # ---------------------------------------------------------------------------
 
-def fused_nearest_indices(flat_z: torch.Tensor, codebook: torch.Tensor
+def fused_nearest_indices(flat_z: torch.Tensor,
+                          codebook: Union[torch.Tensor, PreparedScores]
                           ) -> torch.Tensor:
-    """flat_z [N, D] f32, codebook [K, D] -> int32 [N]: argmin_k of
-    ||e_k||^2 - 2 z.e_k, first minimum on ties."""
-    if not on_card(flat_z, codebook):
-        return nearest_indices(flat_z, codebook).to(torch.int32)
+    """flat_z [N, D] f32, codebook [K, D] (or its `prepare_codebook`)
+    -> int32 [N]: argmin_k of ||e_k||^2 - 2 z.e_k, first minimum on ties."""
+    prepared = isinstance(codebook, PreparedScores)
+    e = codebook.codebook if prepared else codebook
+    require(e is not None, "these PreparedScores were not made from a codebook")
+    if not on_card(flat_z, e):
+        return nearest_indices(flat_z, e).to(torch.int32)
     require(flat_z.dtype == torch.float32,
              f"z must be float32 on the card, got {flat_z.dtype}")
-    e = codebook.to(torch.float32)
-    mt = (-2.0 * e).T.contiguous()  # [D, K]
-    esq = (e * e).sum(dim=1)
-    _check_scores(flat_z, mt, esq)
-    flat_z = flat_z.contiguous()
-    n, d = flat_z.shape
-    out = torch.empty(n, dtype=torch.int32, device=flat_z.device)
-    if n:
-        call("vq_nearest_indices", flat_z.device, flat_z.data_ptr(),
-              mt.data_ptr(), esq.data_ptr(), out.data_ptr(), n, d,
-              mt.shape[1])
-        fused_nearest_indices.launches += 1
-    return out
+    prep = codebook if prepared else prepare_codebook(codebook)
+    return _launch_scores("vq_nearest_indices", fused_nearest_indices, flat_z, prep)
 
 
 fused_nearest_indices.launches = 0

@@ -55,6 +55,8 @@ from vqvdb_tpu_torch.ops.quantize import (
     fused_dequantize,
     fused_nearest_indices,
     fused_score_argmin,
+    prepare_codebook,
+    prepare_scores,
 )
 from vqvdb_tpu_torch.ops.tail import apply_decoder_tail, fold_decoder_tail
 from vqvdb_tpu_torch.utils.errors import ModelMismatchError
@@ -83,7 +85,8 @@ class VQCodec:
     `core.artifact.load_model` returns. It is converted to tensors on
     `device` (default `cuda`; without a card, pass `device="cpu"` or the
     constructor raises). The exact weight rewrites (folded decoder tail,
-    folded projection scores, packed down conv) are computed once here.
+    folded projection scores and the score kernel's split operand, packed
+    down conv) are computed once here.
     """
 
     def __init__(self, params: Dict, model_config: ModelConfig,
@@ -110,6 +113,16 @@ class VQCodec:
                 np.asarray(proj["w"]), np.asarray(proj["b"]),
                 self.params["vq"]["embedding"].cpu().numpy())
             self._score_mc = (m.to(self.device), c.to(self.device))
+        # What the score kernel takes instead of M or a codebook (M split
+        # into bf16 terms in its shared-memory order), made once here: for
+        # the folded scores, or else for each quantizer stage's codebook.
+        self._score_prep = self._stage_prep = None
+        if self._score_mc is not None:
+            self._score_prep = prepare_scores(*self._score_mc)
+        else:
+            books = self.params["vq"]["embedding"]
+            self._stage_prep = [prepare_codebook(e) for e in
+                                (books if books.dim() == 3 else books[None])]
         # As in the JAX package, the packed down conv rides on the folded
         # projection's encode path.
         self._folded_down = None
@@ -140,14 +153,15 @@ class VQCodec:
         enc = self.params["encoder"]
         if self._score_mc is not None:
             h = self._features(x)
-            idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), *self._score_mc)
+            idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), self._score_prep)
         else:
             z = encoder_apply(enc, x, self.mcfg)
             flat = z.reshape(-1, self.mcfg.embedding_dim).to(torch.float32)
             if self.mcfg.num_quantizers > 1:
-                idx = rvq_indices(flat, self.params["vq"]["embedding"])
+                idx = rvq_indices(flat, self.params["vq"]["embedding"],
+                                  self._stage_prep)
             else:
-                idx = fused_nearest_indices(flat, self.params["vq"]["embedding"])
+                idx = fused_nearest_indices(flat, self._stage_prep[0])
         return idx.reshape((b,) + self.mcfg.index_shape).to(torch.uint8)
 
     @torch.inference_mode()
