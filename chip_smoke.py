@@ -30,8 +30,10 @@ Phases, in this order; any failure raises and the script exits non-zero:
      dequantize launches per residual-VQ encode batch, two dequantize
      launches per decode batch.
   7. kernels of these paths: the fused residual block at [4096,8,8,8,16] in
-     bf16 and f32 on the reference model's own features, and score-argmin at
-     feature widths 32 (reference arch) and 128 (vec3).
+     bf16 and f32 on the reference model's own features (against the plain
+     version, bit-equal on repeat, on leaves with NaN / inf planted, and
+     timed with nvidia-smi sampling clocks and power beside the loop), and
+     score-argmin at feature widths 32 (reference arch) and 128 (vec3).
   8. unfused path: fuse_proj_quantize=False (the nearest-code kernel) in
      f32, counters reset around it; its indices must equal the fused f32
      path's except on near-ties.
@@ -41,11 +43,13 @@ Phases, in this order; any failure raises and the script exits non-zero:
      a row that differs at a stage must be a near-tie of that stage's
      scores, and its later stages (which code another residual) are skipped.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
-result line {"ok": true, "device": {...}}. --profile DIR also times one
-steady encode and decode batch of the flagship, the reference arch, the
-residual-VQ model and the vec3 model under torch.profiler and writes the
-profiler tables and the nvcc/ptxas report to DIR; without it no file is
-written outside a temporary directory.
+result line {"ok": true, "device": {...}}. Phase 2 also counts the
+tensor-core instructions in each library's SASS (cuobjdump) and fails if an
+MMA kernel has none. --profile DIR also times one steady encode and decode
+batch of the flagship, the reference arch, the residual-VQ model and the
+vec3 model under torch.profiler and writes the profiler tables, the
+nvcc/ptxas report and the SASS to DIR; without it no file is written
+outside a temporary directory.
 """
 
 from __future__ import annotations
@@ -185,18 +189,22 @@ def terms_check(name, got, plain_scores, exact_scores):
     return missed, plain_missed
 
 
-def score_bound(n, f, k, row_bytes, products):
-    """The score kernel's bound in ms: rows, M and c read once and the indices
-    written once at the memory rate, or `products` bf16 MMAs of 2 n f k
-    operations at the tensor cores' rate; and the f32 CUDA-core bound that
-    the first version of the kernel was held to."""
-    nbytes = n * f * row_bytes + f * k * 4 + k * 4 + n * 4
-    flops = 2.0 * n * f * k
+def tc_bound(nbytes, flops, products):
+    """A tensor-core kernel's bound in ms: `nbytes` (inputs read once,
+    outputs written once) at the memory rate, or `products` bf16 MMAs per
+    f32-grade product of `flops` operations at the tensor cores' rate; and
+    the f32 CUDA-core bound that the first version of each kernel was held
+    to."""
     by_bytes, by_ops = nbytes / HBM_BYTES_PER_S, products * flops / BF16_FLOPS
     return dict(bound_ms=max(by_bytes, by_ops) * 1e3,
                 bound_by="operations" if by_ops > by_bytes else "bytes",
-                products=products,
+                products=products, bytes_bound_ms=by_bytes * 1e3,
                 f32_core_bound_ms=max(by_bytes, flops / F32_FLOPS) * 1e3)
+
+
+def score_bound(n, f, k, row_bytes, products):
+    """The score kernel's bound: rows, M and c read, indices written."""
+    return tc_bound(n * f * row_bytes + f * k * 4 + k * 4 + n * 4, 2.0 * n * f * k, products)
 
 
 def non_finite_check(name, rows, fn, plain):
@@ -537,6 +545,92 @@ def score_argmin_row(name, h_f32, h_bf16, m, c, timed=None):
               f"({plain_missed_b}); {planted} non-finite rows equal plain")
 
 
+RB_TAP_PAIRS = 22 ** 3  # (voxel, tap) pairs of a leaf inside the SAME padding
+
+
+def rb_bound(n_leaves, elem_bytes, products):
+    """The fused residual block's bound: x read, out written, the weights;
+    two convs of 2 n 16 16 operations per (voxel, tap) pair that does not
+    fall on the zero padding. Along each axis the 8 positions see
+    2 + 6 * 3 + 2 = 22 valid taps, so a leaf has 22^3 such pairs, 77% of
+    512 * 27."""
+    nbytes = 2 * n_leaves * 512 * 16 * elem_bytes + 2 * 27 * 16 * 16 * 4 + 6 * 16 * 4
+    return tc_bound(nbytes, 2 * 2.0 * n_leaves * RB_TAP_PAIRS * 16 * 16, products)
+
+
+def sampled_ms(fn, seconds: float = 1.0):
+    """cuda_ms of fn() over a loop of about `seconds`, with nvidia-smi
+    sampling the SM clock, power draw and temperature every 50 ms beside it.
+    Returns (ms, {"sm_mhz": [min, max], "power_w": [min, max], "temp_c":
+    [min, max], "samples": n})."""
+    import threading
+
+    def call():  # keeps no output alive across the loop's launches
+        fn()
+
+    once = cuda_ms(call, iters=10, warmup=3)
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader,nounits", "-lms", "50"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    lines, first = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            first.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        first.wait(timeout=30)
+        start = len(lines)
+        ms = cuda_ms(call, iters=max(50, int(seconds * 1e3 / once)), warmup=0)
+        window = lines[start:]
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        reader.join(timeout=30)
+    rows = []
+    for line in window:
+        try:
+            rows.append([float(v) for v in line.split(",")])
+        except ValueError:
+            continue
+    clocks = {key: [min(r[i] for r in rows), max(r[i] for r in rows)] if rows else None
+              for i, key in enumerate(("sm_mhz", "power_w", "temp_c"))}
+    clocks["samples"] = len(rows)
+    return ms, clocks
+
+
+def rb_non_finite_check(name, params, h, tol):
+    """Leaves with a NaN, +inf, -inf or both infinities planted, spread over
+    the batch: the kernel must give NaN exactly where the plain version does
+    (the whole planted leaf: its GroupNorm statistics are NaN) and agree
+    within `tol` everywhere else."""
+    import torch
+
+    from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused, residual_block_plain
+
+    x = h.clone()
+    n = x.shape[0]
+    planted = []
+    for start, val in ((5, float("nan")), (17, float("inf")), (29, float("-inf")),
+                       (41, float("inf"))):
+        idx = torch.arange(start, n, 509, device=x.device)
+        x[idx, 3, 4, 5, (start // 4) % 16] = val
+        planted.append(idx)
+    x[planted[3], 0, 7, 7, 0] = float("-inf")  # both infinities in one leaf
+    got = residual_block_fused(params, x).float()
+    want = residual_block_plain(params, x, 8, 0.1).float()
+    sel = torch.cat(planted)
+    if not (torch.isnan(got[sel]).all() and torch.equal(torch.isnan(got), torch.isnan(want))):
+        raise AssertionError(f"{name}: NaN pattern differs from the plain version")
+    if not torch.allclose(got, want, atol=tol, rtol=tol, equal_nan=True):
+        raise AssertionError(f"{name}: leaves without a planted value differ beyond {tol}")
+    return sel.numel()
+
+
 def side_kernel_phase(ref_codec, grid, vec_codec, vgrid):
     """Phase 7: the fused residual block and the wider score-argmin shapes."""
     import torch
@@ -565,23 +659,27 @@ def side_kernel_phase(ref_codec, grid, vec_codec, vgrid):
             if not torch.allclose(got.float(), want.float(), atol=tol, rtol=tol):
                 raise AssertionError(f"fused_rb {dtype}: max abs err {err} beyond "
                                      f"atol = rtol = {tol}")
-            flops = 2 * 2.0 * h.shape[0] * 512 * 27 * 16 * 16
-            nbytes = 2 * h.numel() * h.element_size() + 2 * 27 * 16 * 16 * 4 + 6 * 16 * 4
+            if not torch.equal(residual_block_fused(enc["pre_rb"], h), got):
+                raise AssertionError(f"fused_rb {dtype}: a second launch gave other bits")
+            planted = rb_non_finite_check(f"fused_rb {dtype}", enc["pre_rb"], h, tol)
+            ms, clocks = sampled_ms(lambda: residual_block_fused(enc["pre_rb"], h))
             rows.append(dict(
                 name="fused_rb" if dtype == torch.bfloat16 else "fused_rb_f32",
-                route="cuda", source="vqvdb_tpu_torch/csrc/fused_rb.cu",
+                route="cuda", source="vqvdb_tpu_torch/csrc/fused_rb_tc.cu",
                 replaces="vqvdb_tpu/ops/fused_rb.py:197", max_abs_err=err,
-                ms=cuda_ms(lambda: residual_block_fused(enc["pre_rb"], h)),
+                ms=ms,
                 plain_ms=cuda_ms(lambda: residual_block_plain(enc["pre_rb"], h, 8, 0.1),
                                  iters=10, warmup=2),
-                bound_ms=max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3,
-                bound_by="operations" if flops / F32_FLOPS > nbytes / HBM_BYTES_PER_S else "bytes",
-                bytes_bound_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+                **rb_bound(h.shape[0], h.element_size(),
+                           products=3 if dtype == torch.bfloat16 else 6),
                 library_ms=None,  # no single PyTorch call computes the whole block
                 eager_ms=cuda_ms(lambda: blocks.residual_block(enc["pre_rb"], h)),
-                check=f"{dtype}, groups 8, atol = rtol = {tol}; input dense NDHWC as "
-                      f"GroupNorm hands it over: {dense}; eager block with cuDNN TF32 "
-                      f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}"))
+                clocks_during_ms=clocks,
+                check=f"{dtype}, groups 8, atol = rtol = {tol}, bit-equal on repeat, "
+                      f"{planted} leaves with NaN/inf planted as plain; input dense NDHWC "
+                      f"as GroupNorm hands it over: {dense}; eager block with cuDNN TF32 "
+                      f"{'on' if torch.backends.cudnn.allow_tf32 else 'off'}; during the "
+                      f"timing loop {clocks}"))
 
         for name, codec, data in (("score_argmin_width32", ref_codec, grid),
                                   ("score_argmin_width128", vec_codec, vgrid)):
@@ -692,6 +790,30 @@ def profile_batches(codec, grid, out_dir: Path, prefix: str = ""):
     return summary
 
 
+def mma_counts(out_dir):
+    """Counts of tensor-core instructions (HMMA: mma.sync, HGMMA: wgmma) in
+    the SASS of each built kernel library, from cuobjdump next to nvcc; the
+    MMA kernels must have some. With `out_dir` the SASS is written there as
+    sass_<name>.txt."""
+    import os
+
+    from vqvdb_tpu_torch.ops import build
+
+    cuobjdump = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
+    counts = {}
+    for name in build.SOURCES:
+        sass = subprocess.run([cuobjdump, "-sass", str(build._target(name))], check=True,
+                              capture_output=True, text=True, timeout=120).stdout
+        if out_dir is not None:
+            (out_dir / f"sass_{name}.txt").write_text(sass)
+        counts[name] = {op: sum(f" {op}." in line for line in sass.splitlines())
+                        for op in ("HMMA", "HGMMA")}
+    for name in ("score_argmin_tc", "fused_rb_tc"):
+        if not sum(counts[name].values()):
+            raise AssertionError(f"{name}: no tensor-core instruction in its SASS")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -726,6 +848,7 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line:
                 log(f"[build] {name}: {line.strip()}")
+    log(f"[build] tensor-core instructions in the built code: {json.dumps(mma_counts(args.profile))}")
 
     tree, cfg = load_model(REPO / "models" / "scalar.vqmodel")
     t0 = time.perf_counter()

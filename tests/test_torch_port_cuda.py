@@ -217,10 +217,11 @@ def _rb_params(rng, dev, c=16):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", [8, 4])
-@pytest.mark.parametrize("n", [301, 1])
+@pytest.mark.parametrize("n", [4097, 301, 1])
 def test_card_fused_rb(rng, dtype, groups, n):
-    """301 leaves: more than one pass of the persistent grid, and an odd
-    count, so one block's second leaf slot runs empty."""
+    """4097 leaves: a ragged last pass of the persistent grid (one leaf more
+    than the codec's batch); 301: fewer leaves than leaf slots on the card,
+    so some blocks' teams run empty; 1: one team works."""
     dev = _card()
     p = _rb_params(rng, dev)
     x = torch.from_numpy(_rand(rng, n, 8, 8, 8, 16)).to(dev, dtype)
@@ -240,6 +241,30 @@ def test_card_fused_rb(rng, dtype, groups, n):
     tol = dict(atol=5e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=8e-3)
     torch.testing.assert_close(half.float(),
                                residual_block_plain(p, x, groups, 0.5).float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_fused_rb_non_finite_leaves(rng, dtype):
+    """A leaf with a NaN or an infinity in x is NaN throughout (its
+    GroupNorm statistics are), as in the plain version; the other leaves
+    agree within the tolerances above."""
+    dev = _card()
+    p = _rb_params(rng, dev)
+    x = _rand(rng, 700, 8, 8, 8, 16)
+    x[3, 1, 2, 3, 4] = np.nan
+    x[100, 7, 7, 7, 15] = np.inf
+    x[401, 0, 0, 0, 0] = -np.inf
+    x[699, 4, 4, 4, 8] = np.inf
+    x[699, 4, 4, 5, 8] = -np.inf
+    x = torch.from_numpy(x).to(dev, dtype)
+    got = residual_block_fused(p, x).float()
+    want = residual_block_plain(p, x, 8, 0.1).float()
+    planted = [3, 100, 401, 699]
+    assert torch.isnan(got[planted]).all()
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 else dict(atol=1e-3, rtol=8e-3)
+    torch.testing.assert_close(got, want, equal_nan=True, **tol)
 
 
 @pytest.mark.cuda

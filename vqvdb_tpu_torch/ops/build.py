@@ -29,7 +29,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("dequantize", "score_argmin_tc", "fused_rb")
+SOURCES = ("dequantize", "score_argmin_tc", "fused_rb_tc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -39,7 +39,7 @@ ENTRY_POINTS = {
     "vq_dequantize": ("dequantize", (_P, _I, _P, _P, _I, _I, _I)),
     "vq_score_argmin": ("score_argmin_tc", (_P, _I, _P, _P, _P, _I, _I, _I)),
     "vq_nearest_indices": ("score_argmin_tc", (_P, _P, _P, _P, _I, _I, _I)),
-    "vq_residual_block16": ("fused_rb", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F)),
+    "vq_residual_block16": ("fused_rb_tc", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F)),
 }
 
 _lock = threading.Lock()
