@@ -6,7 +6,8 @@
 
 Phases, in this order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1.
-  2. build: compile every CUDA kernel of the package from its sources.
+  2. build: compile every CUDA kernel of the package from its sources, and
+     the native LZ4 library (`native/vqvdb_native.cpp`, g++).
   3. main path: the flagship `models/scalar.vqmodel` (packed scalar, K=256,
      D=128) at full width, default CodecConfig (bf16, batch 4096):
      compress a seeded smooth field of --leaves leaves to a v3 file and
@@ -42,6 +43,23 @@ Phases, in this order; any failure raises and the script exits non-zero:
      the residual-VQ model. A residual-VQ row is compared stage by stage:
      a row that differs at a stage must be a near-tie of that stage's
      scores, and its later stages (which code another residual) are skipped.
+ 10. container tiers: the phase-3 codec compresses and decompresses the
+     --leaves leaves to v5 (zlib, lz4, lzma) and v6 (int8, int8 with
+     residual_tol under zlib and under lz4, f16), counters around each half; each logs its rates,
+     bytes, ratio to raw f32, PSNR, max error and the host's milliseconds
+     per batch for frame writing / reading and residual quantization /
+     correction. Then it fails unless: verify_roundtrip of the v6 int8 file
+     gives bound_ok; the decode step's rows do not depend on the batch's
+     other (padded) rows, bit for bit; compress_stream writes the v6 int8
+     file byte for byte; a bounding-box decode_stream equals decompress on
+     its origins; transcode v6 -> v5 (drop_residual) keeps the indices. The
+     residual-VQ model also runs v6 f16 on --side-leaves leaves (the
+     nearest-code kernel inside the residual pass).
+ 11. large codebook: the flagship with its codebook grown to K=4096 (the
+     256 trained codes, then trained codes plus seeded noise) at full width
+     through v4 (u16 indices, some above 255), with the score kernel's 16
+     code tiles per batch counted; then the kernel row `score_argmin_k4096`
+     at F=64, K=4096 as in phase 4.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -814,6 +832,201 @@ def mma_counts(out_dir):
     return counts
 
 
+RESIDUAL_TOL = 1e-3
+TIERS = (("v5_zlib", dict(format_version=5, compression="zlib")),
+         ("v5_lz4", dict(format_version=5, compression="lz4")),
+         ("v5_lzma", dict(format_version=5, compression="lzma")),
+         ("v6_int8", dict(residual="int8")),
+         ("v6_int8_tol", dict(residual="int8", residual_tol=RESIDUAL_TOL)),
+         ("v6_int8_tol_lz4", dict(residual="int8", residual_tol=RESIDUAL_TOL,
+                                  compression="lz4")),
+         ("v6_f16", dict(residual="f16")))
+
+
+def _file_indices(path):
+    """Every grid's indices of a file, in order, as one array."""
+    import numpy as np
+
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+
+    out = []
+    with VqvdbReader(path) as r:
+        for _, batches in r.iter_grids():
+            out += [idx for idx, _ in batches]
+    return np.concatenate(out)
+
+
+def tier_round_trip(label, codec, grid, path, **opts):
+    """compress -> decompress on one container tier, counters reset before
+    and read after each half; rates, size, error and the host's share per
+    batch (frame writing and reading, residual quantization and correction)."""
+    import numpy as np
+
+    from vqvdb_tpu_torch.vdb.grid import psnr
+
+    reset_launches()
+    cstats = codec.compress(grid, path, **opts)
+    enc = read_launches()
+    reset_launches()
+    dgrids, dstats = codec.decompress(path)
+    dec = read_launches()
+    out = dgrids[0]
+    if out.leaves.shape != grid.leaves.shape or not np.isfinite(out.leaves).all():
+        raise AssertionError(f"{label}: decoded leaves are not finite / of the input's shape")
+    if not np.array_equal(out.origins, grid.origins):
+        raise AssertionError(f"{label}: decoded origins differ from the input's")
+    batches = -(-grid.num_leaves // codec.ccfg.batch_size)
+    s = codec.mcfg.num_quantizers
+    if codec._score_mc is not None:
+        want = {"score_argmin": batches * codec._score_prep.tiles, "dequantize": 0}
+    else:
+        want = {"nearest_indices": s * batches, "dequantize": s * batches}
+    if opts.get("residual"):  # the encode batches run the decode step too
+        want["dequantize"] += s * batches
+    expect_launches(f"{label} encode", enc, **want)
+    expect_launches(f"{label} decode", dec, dequantize=s * batches)
+    per_batch = {k: v / batches * 1e3 for k, v in
+                 {**cstats["host_seconds"], **dstats["host_seconds"]}.items()}
+    quality = psnr(out.leaves, grid.leaves)
+    if not quality > MIN_PSNR_DB:
+        raise AssertionError(f"{label}: round-trip PSNR {quality:.2f} dB <= {MIN_PSNR_DB}")
+    return {
+        "compress_leaves_per_s": cstats["leaves_per_sec"],
+        "decompress_leaves_per_s": dstats["leaves_per_sec"],
+        "file_bytes": cstats["bytes"], "ratio": grid.leaves.nbytes / cstats["bytes"],
+        "psnr_db": quality, "max_abs_err": float(np.abs(out.leaves - grid.leaves).max()),
+        "host_ms_per_batch": per_batch, "encode_launches": enc, "decode_launches": dec,
+    }
+
+
+class _Stream:
+    """A grid read lazily in pieces, as compress_stream takes it."""
+
+    def __init__(self, grid, piece):
+        self.grid, self.piece = grid, piece
+        self.name, self.transform, self.origins = grid.name, grid.transform, grid.origins
+        self.num_leaves, self.channels = grid.num_leaves, grid.channels
+
+    def leaf_batches(self, batch_size):
+        for s in range(0, self.num_leaves, self.piece):
+            yield self.grid.leaves[s: s + self.piece]
+
+
+def tier_phase(codec, grid, workdir: Path):
+    """Phase 10: the flagship on the v5 and v6 tiers, then the checks that
+    hold the tiers to the codec: the int8 bound, row independence of the
+    decode step, compress_stream, a bounding-box stream and transcode."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.format.transcode import transcode
+    from vqvdb_tpu_torch.format.verify import verify_roundtrip
+
+    out = {}
+    for label, opts in TIERS:
+        out[label] = tier_round_trip(label, codec, grid, workdir / f"{label}.vqvdb", **opts)
+        log(f"[tiers] {label}: {json.dumps(out[label])}")
+    checks = {}
+    v6 = workdir / "v6_int8.vqvdb"
+    report = verify_roundtrip(v6, codec, [grid])
+    row = report["grids"][0]
+    if not (report["ok"] and row["bound_ok"]):
+        raise AssertionError(f"v6 int8 verify_roundtrip: {json.dumps(report)}")
+    checks["verify_roundtrip_v6_int8"] = {k: row[k] for k in (
+        "matched_leaves", "max_abs_err", "residual_bound", "bound_ok", "psnr_db")}
+    # The bound needs the encode-time decode to equal the decompress one bit
+    # for bit, and the two batches differ in their padded rows.
+    bs = codec.ccfg.batch_size
+    idx = torch.from_numpy(_file_indices(v6)[:bs]).cuda()
+    rows = grid.num_leaves % bs or bs // 2
+    padded = idx.clone()
+    padded[rows:] = torch.randint_like(padded[rows:], 0, codec.mcfg.num_embeddings)
+    padded[:rows] = idx[:rows]
+    a, b = codec._decode_step(idx), codec._decode_step(padded)
+    if not torch.equal(a[:rows], b[:rows]):
+        raise AssertionError("decode step: rows depend on the batch's other rows")
+    checks["decode_rows_independent"] = {"rows": rows, "bit_equal": True}
+    streamed = workdir / "stream.vqvdb"
+    codec.compress_stream(_Stream(grid, 1000), streamed, residual="int8")
+    if streamed.read_bytes() != v6.read_bytes():
+        raise AssertionError("compress_stream of the grid differs from its compress")
+    checks["compress_stream_byte_identical"] = True
+    lo, hi = grid.origins.min(0), grid.origins.max(0) + 8
+    box = (lo, (lo + hi) // 2)
+    whole, _ = codec.decompress(v6)
+    at = {o.tobytes(): i for i, o in enumerate(whole[0].origins)}
+    picked = 0
+    for meta, leaves, origins in codec.decode_stream(v6, bbox=box):
+        sel = [at[o.tobytes()] for o in origins]
+        if not np.array_equal(leaves, whole[0].leaves[sel]):
+            raise AssertionError("bbox decode_stream differs from decompress on its origins")
+        picked += len(sel)
+    if not 0 < picked < grid.num_leaves:
+        raise AssertionError(f"bbox picked {picked} leaves")
+    checks["bbox_decode_stream_equal"] = {"leaves": picked, "bit_equal": True}
+    t = transcode(v6, workdir / "dropped.vqvdb", version=5, compression="lz4",
+                  drop_residual=True)
+    if not np.array_equal(_file_indices(workdir / "dropped.vqvdb"), _file_indices(v6)):
+        raise AssertionError("transcode v6 -> v5 changed the indices")
+    checks["transcode_v6_to_v5"] = {"bytes_in": t["bytes_in"], "bytes_out": t["bytes_out"],
+                                    "indices_equal": True}
+    log(f"[tiers] checks {json.dumps(checks)}")
+    return out, checks
+
+
+def grown_codebook(tree, cfg, seed: int, k: int = 4096):
+    """The flagship's 256 trained codes and k - 256 more, each a trained
+    code (drawn with numpy from `seed`) plus Gaussian noise of 2% of the
+    codebook's spread, so that codes above 255 win for about 1% of the
+    latents of a smooth field (a tenth of the spread: almost none)."""
+    import dataclasses
+
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    vq = tree["vq"]
+    e = np.asarray(vq["embedding"], np.float32)
+    src = rng.integers(0, e.shape[0], k - e.shape[0])
+    noise = rng.standard_normal((k - e.shape[0], e.shape[1])).astype(np.float32)
+    big = np.concatenate([e, e[src] + 0.02 * e.std() * noise])
+    grown = dict(tree, vq=dict(vq, embedding=big,
+                               cluster_size=np.zeros(k, np.float32), embed_avg=big.copy()))
+    return grown, dataclasses.replace(cfg, num_embeddings=k)
+
+
+def large_codebook_phase(tree, cfg, grid, seed: int, workdir: Path):
+    """Phase 11: the flagship grown to K=4096 through v4 (u16 indices), and
+    the score kernel at F=64, K=4096 against its plain version."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+
+    big_tree, big_cfg = grown_codebook(tree, cfg, seed)
+    codec = VQCodec(big_tree, big_cfg, CodecConfig(), device="cuda")
+    codec.compress(grid_subset(grid, 5000), workdir / "warm.vqvdb")
+    torch.cuda.synchronize()
+    res = round_trip("k4096", codec, grid, workdir, MIN_PSNR_DB)
+    n, tiles = res["batches"], codec._score_prep.tiles
+    expect_launches("k4096 encode", res["encode_launches"], score_argmin=n * tiles)
+    expect_launches("k4096 decode", res["decode_launches"], dequantize=n)
+    with VqvdbReader(workdir / "k4096.vqvdb") as r:
+        version = r.version
+    idx = _file_indices(workdir / "k4096.vqvdb")
+    if version != 4 or idx.dtype != np.uint16 or not (idx > 255).any():
+        raise AssertionError(f"k4096: v{version} file of {idx.dtype} indices, max {idx.max()}")
+    res.update(file_version=version, tiles=tiles, index_dtype=str(idx.dtype),
+               share_above_255=float((idx > 255).mean()), max_index=int(idx.max()))
+    with torch.inference_mode():
+        x = torch.from_numpy(grid.leaves[:4096]).cuda()
+        h_bf16 = codec._features(x.to(torch.bfloat16)).reshape(-1, 64)
+        h_f32 = codec._features(x).reshape(-1, 64)
+        row = score_argmin_row("score_argmin_k4096", h_f32, h_bf16, *codec._score_mc)
+    return res, row
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -830,6 +1043,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from vqvdb_tpu_torch.core.artifact import load_model
     from vqvdb_tpu_torch.ops import build
+    from vqvdb_tpu_torch.runtime import native_io
 
     t_start = time.perf_counter()
     smi = smi_line()
@@ -840,6 +1054,9 @@ def main() -> int:
     t0 = time.perf_counter()
     reports = build.build()
     log(f"[build] {len(reports)} kernel libraries built in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    native_io.backend()  # the LZ4 library of the v5/v6 frames, built here, not in a tier
+    log(f"[build] native LZ4 library ready in {time.perf_counter() - t0:.1f} s")
     if args.profile is not None:
         args.profile.mkdir(parents=True, exist_ok=True)
         (args.profile / "ptxas.txt").write_text(
@@ -889,6 +1106,17 @@ def main() -> int:
     expect_launches("scalar_rvq2 f32 encode", par["scalar_rvq2"]["launches"],
                     nearest_indices=2, dequantize=2)
 
+    with tempfile.TemporaryDirectory() as tmp:
+        workdir = Path(tmp)
+        tier_phase(codec, grid, workdir)
+        rvq = side["scalar_rvq2"][2]
+        rvq_res = tier_round_trip("scalar_rvq2 v6_f16", rvq, grid_subset(grid, args.side_leaves),
+                                  workdir / "rvq2.vqvdb", residual="f16")
+        log(f"[tiers] scalar_rvq2 v6_f16: {json.dumps(rvq_res)}")
+        big_res, big_row = large_codebook_phase(tree, cfg, grid, args.seed, workdir)
+        log(f"[k4096] {json.dumps(big_res)}")
+        kernels += log_kernel_rows([big_row])
+
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
     launches = {"dequantize": main_res["decode_launches"]["dequantize"],
@@ -899,6 +1127,7 @@ def main() -> int:
     launches["fused_rb_f32"] = par["scalar_reference"]["launches"]["fused_rb"]
     launches["score_argmin_width32"] = ref_res["encode_launches"]["score_argmin"]
     launches["score_argmin_width128"] = side_res["vec3"]["encode_launches"]["score_argmin"]
+    launches["score_argmin_k4096"] = big_res["encode_launches"]["score_argmin"]
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

@@ -1,6 +1,7 @@
 """The CUDA kernels against their plain versions, on the card.
 
-Every test here is marked `cuda` and skips without a card. The file imports
+Every test here is marked `cuda` and skips without a card (the LZ4 shim's
+needs none and runs anywhere). The file imports
 neither JAX nor the JAX package, so it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_port_cuda.py
@@ -185,8 +186,8 @@ def test_card_wrappers_raise_instead_of_falling_back(rng):
         q.fused_dequantize(torch.zeros(8, dtype=torch.uint8), cb)
     h = torch.zeros(8, 64, device=dev)
     with pytest.raises(ValueError):  # K outside what the kernel takes
-        q.fused_score_argmin(h, torch.zeros(64, 100, device=dev),
-                             torch.zeros(1, 100, device=dev))
+        q.fused_score_argmin(h, torch.zeros(64, 0, device=dev),
+                             torch.zeros(1, 0, device=dev))
     with pytest.raises(ValueError):  # z must be f32 on the card
         q.fused_nearest_indices(torch.zeros(8, 128, device=dev, dtype=torch.bfloat16), cb)
     with pytest.raises(ValueError):  # f16 rows are not taken
@@ -202,6 +203,103 @@ def test_card_wrappers_raise_instead_of_falling_back(rng):
                              torch.zeros(1, 256, device=dev))
     assert q.fused_score_argmin(h[:0], torch.zeros(64, 64, device=dev),
                                 torch.zeros(1, 64, device=dev)).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [100, 320, 512, 4096])
+@pytest.mark.parametrize("f", [32, 64])
+def test_card_score_argmin_code_tiles(rng, f, k, dtype):
+    """K beyond one tile of 256 codes (and K not a multiple of 64): equal
+    codes in different tiles tie to the first; a NaN in c wins from any
+    tile, the first NaN kept."""
+    dev = _card()
+    n = 5000
+    h, m, c = (torch.from_numpy(a).to(dev) for a in _tied_scores_inputs(rng, n, f, k))
+    h = h.to(dtype)
+    prep = q.prepare_scores(m, c)
+    assert prep.tiles * prep.tile >= k and prep.tile <= 256
+    launches = q.fused_score_argmin.launches
+    got = q.fused_score_argmin(h, prep)
+    torch.cuda.synchronize()
+    assert q.fused_score_argmin.launches == launches + prep.tiles
+    assert torch.equal(got, q.score_argmin_plain(h, m, c))
+    assert (got == 9).all()
+    c2 = c.clone()
+    c2[0, 9] = c2[0, k - 3] = 0.0
+    m2 = m.clone()
+    m2[:, k - 1] = m2[:, k - 2] = m2[:, 0]
+    c2[0, [0, k - 2, k - 1]] = -20000.0  # the first code and the last two tie
+    assert (q.fused_score_argmin(h, m2, c2) == 0).all()
+    c2[0, 0] = 0.0  # the last two tie, in the last tile
+    assert (q.fused_score_argmin(h, m2, c2) == k - 2).all()
+    c2[0, [k - 1, 40]] = float("nan")
+    assert (q.fused_score_argmin(h, m2, c2) == 40).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [320, 512, 4096])
+def test_card_score_argmin_code_tiles_real_and_non_finite(rng, k, dtype):
+    """Real values against the f64 argmin; rows with NaN / +-inf planted
+    equal the plain version, so pad codes (zero columns of M: inf * 0 =
+    NaN) never win."""
+    dev = _card()
+    n, f = 4099, 64
+    h = _rand(rng, n, f)
+    h[0::7, 3] = np.nan
+    h[1::7, 5] = np.inf
+    h[2::7, 1] = -np.inf
+    h[3::7, 0] = np.inf
+    h[3::7, 2] = -np.inf
+    h = torch.from_numpy(h).to(dev, dtype)
+    m = torch.from_numpy(_rand(rng, f, k)).to(dev)
+    c = torch.from_numpy(_rand(rng, 1, k)).to(dev)
+    m[:, k - 1], c[0, k - 1] = m[:, 5], c[0, 5]  # one code in the first tile and the last
+    got = q.fused_score_argmin(h, m, c)
+    want = q.score_argmin_plain(h, m, c)
+    special = torch.arange(n, device=dev) % 7 < 4
+    assert torch.equal(got[special], want[special])
+    assert (got[0::7] == 0).all() and (got < k - 1).all() and (got == 5).any()
+    _assert_argmin_off_near_ties(got[~special],
+                                 h[~special].double() @ m.double() + c.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [320, 512, 4096])
+def test_card_nearest_code_tiles(rng, k):
+    dev = _card()
+    d, n = 64, 3001
+    cb = torch.from_numpy(rng.integers(-2, 3, size=(k, d)).astype(np.float32)).to(dev)
+    cb[k - 1] = cb[3]
+    cb[300] = cb[299]  # equal codes on either side of a tile edge (kt 192 or 256)
+    z = torch.from_numpy(rng.integers(-2, 3, size=(n, d)).astype(np.float32)).to(dev)
+    z[0] = cb[3]
+    z[1] = cb[299]
+    z[2, 4] = float("inf")
+    got = q.fused_nearest_indices(z, cb)
+    assert torch.equal(got.long(), nearest_indices(z, cb))
+    assert got[0] == 3 and got[1] == 299
+    e = torch.from_numpy(_rand(rng, k, d)).to(dev)
+    zr = torch.from_numpy(_rand(rng, n, d)).to(dev)
+    e64 = e.double()
+    _assert_argmin_off_near_ties(q.fused_nearest_indices(zr, e),
+                                 (e64 * e64).sum(1)[None, :] - 2.0 * (zr.double() @ e64.T))
+
+
+@pytest.mark.cuda
+def test_card_native_lz4_round_trip(rng):
+    """The port's LZ4 shim, built from native/vqvdb_native.cpp on this host
+    (no card needed), on compressible and random bytes."""
+    from vqvdb_tpu_torch.runtime import native_io
+
+    assert native_io.backend() == "native" and native_io.version() >= 2
+    for raw in (np.repeat(rng.integers(0, 4, 5000, dtype=np.uint8), 7).tobytes(),
+                rng.integers(0, 256, 20000, dtype=np.uint8).tobytes(), b"x"):
+        blob = native_io.lz4_compress(raw)
+        assert native_io.lz4_decompress(blob, len(raw)) == raw
+    with pytest.raises(ValueError):
+        native_io.lz4_decompress(blob[:-1] + b"\xff\xff", 1)
 
 
 def _rb_params(rng, dev, c=16):

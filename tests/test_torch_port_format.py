@@ -96,15 +96,22 @@ def test_streaming_batches_and_errors(rng, tmp_path):
 
 
 def test_other_versions_raise(rng, tmp_path):
+    """Versions 3 to 6 are read and written (tests/test_torch_port_tiers.py);
+    any other raises VersionError, a bad magic FormatError."""
     with pytest.raises(VersionError):
-        fmt.VqvdbWriter(tmp_path / "x.vqvdb", version=4)
+        fmt.VqvdbWriter(tmp_path / "x.vqvdb", version=7)
     idx, org, _ = _grid_data(rng, 4)
     v4 = tmp_path / "v4.vqvdb"
     with jfmt.VqvdbWriter(v4, version=4) as w:
         w.start_grid(jfmt.GridMetadata("g", 256, (4, 4, 4), total_blocks=4))
         w.write_batch(idx, org)
+    with fmt.VqvdbReader(v4) as r:
+        assert r.version == 4
+        np.testing.assert_array_equal(r.read_grid()[1], idx)
+    v9 = tmp_path / "v9.vqvdb"
+    v9.write_bytes(v4.read_bytes()[:5] + bytes([9]) + v4.read_bytes()[6:])
     with pytest.raises(VersionError):
-        fmt.VqvdbReader(v4)
+        fmt.VqvdbReader(v9)
     bad = tmp_path / "bad.vqvdb"
     bad.write_bytes(b"VQVDX" + v4.read_bytes()[5:])
     with pytest.raises(FormatError):

@@ -225,7 +225,7 @@ def test_emulated_warpgroup_reproduces_scores_and_argmin(rng, f, k, rows_dtype):
     m, c = torch.from_numpy(_rand(rng, f, k)), torch.from_numpy(_rand(rng, k))
     prep = q.prepare_scores(m, c)
     fp = -(-f // 32) * 32
-    assert prep.operand.shape == (fp // 32, 3, 2, k // 8, 2, 8, 8)
+    assert prep.operand.shape == (1, fp // 32, 3, 2, k // 8, 2, 8, 8)
     assert prep.operand.dtype == torch.bfloat16 and prep.operand.is_contiguous()
     padded = torch.nn.functional.pad(h.float(), (0, fp - f))
     if rows_dtype == "bfloat16":
@@ -279,7 +279,7 @@ def test_codec_prepares_score_operands_once(rng, name, fuse):
         fresh = q.prepare_scores(*codec._score_mc)
         assert _same_prepared(codec._score_prep, fresh) and codec._stage_prep is None
         f, k = codec._score_mc[0].shape
-        assert fresh.operand.shape == (-(-f // 32), 3, 2, k // 8, 2, 8, 8)
+        assert fresh.operand.shape == (1, -(-f // 32), 3, 2, k // 8, 2, 8, 8)
     else:
         books = codec.params["vq"]["embedding"]
         books = books if books.dim() == 3 else books[None]
@@ -311,4 +311,4 @@ def test_rvq_indices_with_prepared_stages(rng):
     with pytest.raises(ValueError):  # not made from a codebook
         q.fused_nearest_indices(z, prep)
     with pytest.raises(ValueError):  # K outside what the kernel takes
-        q.prepare_scores(torch.zeros(32, 100), torch.zeros(100))
+        q.prepare_scores(torch.zeros(32, q.MAX_CODES + 1), torch.zeros(q.MAX_CODES + 1))

@@ -8,9 +8,9 @@ needs. Its layout mirrors the JAX package so each module has a counterpart:
   models/    blocks, encoder/decoder graphs, quantizer (inference parts)
   ops/       the CUDA kernels' wrappers and their plain versions, folds
   csrc/      the hand-written CUDA kernels (sm_90a)
-  format/    `.vqvdb` v3 reader/writer
+  format/    `.vqvdb` v3-v6 reader/writer, transcode, verify
   vdb/       LeafGrid, PSNR
-  runtime/   the streaming codec
+  runtime/   the streaming codec, the v6 residual math, the LZ4 shim
 
 Entry points (`VQCodec`, `params_from_jax`) run on `cuda` unless the caller
 passes `device="cpu"`; without a card they raise instead of moving to the CPU.

@@ -79,6 +79,16 @@
 //     instructions a score) does not hide under the other warpgroup's MMAs
 //     as well as hoped: at F <= 64 kernel time is close to MMA time plus
 //     epilogue time (tools/score_phases.py measures the two apart).
+//   * Any K from 1 to 65,536. The accumulators of 64 rows x 256 codes take
+//     128 of a consumer's 232 registers, so the codes run in tiles of kt <=
+//     256, one launch per tile in code order. Every tile of a call has the
+//     same width, so identical codes in different tiles see the same MMAs
+//     and get bit-equal scores. A launch adds its tile's first code and
+//     merges its (minimum, code) per row into a running pair in device
+//     memory by the same rules as inside a tile; a partial last tile sets
+//     the scores of its pad codes to +inf before the minimum. Rows are read
+//     once per tile: a loop over tiles inside the kernel, row tile kept
+//     resident, would read them once.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -403,11 +413,17 @@ __device__ __forceinline__ void chunk_step(float (&acc)[32 * NB], const Frag<T>&
 // empty_b[stage]. Named barriers 1 and 2 pass the tensor cores between the
 // two consumer warpgroups when M is resident.
 
-template <typename T, int NB>
+// kRagged: the tile holds fewer than K valid codes (the last tile of a K
+// that is no multiple of the tile width), and its pad codes are masked.
+// kMerge: one of several tiles, merged into the running (score, code) pair.
+// Both are instantiations of their own, so that a call of one full tile runs
+// none of their code.
+template <typename T, int NB, bool kRagged, bool kMerge>
 __global__ void __launch_bounds__(kThreads, 1)
     score_argmin_kernel(const T* __restrict__ h, const __nv_bfloat16* __restrict__ b,
-                        const float* __restrict__ c, int32_t* __restrict__ out, int n,
-                        int fp, int resident, int a_stages, int b_stages) {
+                        const float* __restrict__ c, int32_t* __restrict__ out,
+                        float* __restrict__ best, int n, int fp, int resident, int a_stages,
+                        int b_stages, int code0, int valid) {
   constexpr int K = 64 * NB;
   constexpr uint32_t kChunkBytes = 3 * 2 * 16 * K * 2;
   extern __shared__ __align__(128) uint8_t smem[];
@@ -432,7 +448,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = threadIdx.x; i < K; i += kThreads) c_s[i] = c[i];
+  for (int i = threadIdx.x; i < K; i += kThreads) c_s[i] = i < valid ? c[i] : 0.f;
   __syncthreads();
 
   const int pairs = (n + 2 * kTileRows - 1) / (2 * kTileRows);
@@ -526,7 +542,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 #endif
       // acc[4j + 2r + v] is the score of row g + 8r, code 8j + 2t + v.
       // Pass 1: add c, and the row's minimum (min.NaN keeps a NaN) over the
-      // thread's codes, then over the quad.
+      // thread's codes, then over the quad. In a ragged tile the pad codes'
+      // scores become +inf first: a zero column of M meets an infinite row
+      // value as inf * 0 = NaN, which would win.
       float low[2] = {INFINITY, INFINITY};
 #pragma unroll
       for (int j = 0; j < 8 * NB; ++j) {
@@ -535,6 +553,10 @@ __global__ void __launch_bounds__(kThreads, 1)
         for (int r = 0; r < 2; ++r) {
           acc[4 * j + 2 * r] += cc.x;
           acc[4 * j + 2 * r + 1] += cc.y;
+          if constexpr (kRagged) {
+            if (8 * j + 2 * t >= valid) acc[4 * j + 2 * r] = INFINITY;
+            if (8 * j + 2 * t + 1 >= valid) acc[4 * j + 2 * r + 1] = INFINITY;
+          }
           low[r] = fmin_nan(low[r], acc[4 * j + 2 * r]);
           low[r] = fmin_nan(low[r], acc[4 * j + 2 * r + 1]);
         }
@@ -581,7 +603,23 @@ __global__ void __launch_bounds__(kThreads, 1)
         code = min(code, __shfl_xor_sync(0xffffffffu, code, 1));
         code = min(code, __shfl_xor_sync(0xffffffffu, code, 2));
         const long long row = (2LL * pair + wg) * kTileRows + row_in_tile + 8 * r;
-        if (t == 0 && row < n) out[row] = code;
+        if (t == 0 && row < n) {
+          // Across code tiles (launched in order) the same rules as inside
+          // one: a strictly smaller score wins, an equal one keeps the
+          // earlier code, a NaN wins over any number and the first NaN stays.
+          if constexpr (!kMerge) {
+            out[row] = code;
+          } else if (code0 == 0) {
+            out[row] = code;
+            best[row] = low[r];
+          } else {
+            const float held = best[row];
+            if (low[r] < held || (low[r] != low[r] && held == held)) {
+              out[row] = code0 + code;
+              best[row] = low[r];
+            }
+          }
+        }
       }
     }
   }
@@ -591,15 +629,19 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Host side
 // ---------------------------------------------------------------------------
 
+// Launches one kernel per tile of K codes (the last tile may be partial),
+// in code order; `best` carries the running minimum score across tiles and
+// is unused (may be null) when one tile covers all k codes.
 template <typename T, int NB>
-int launch_nb(const void* h, const void* b, const void* c, void* out, int n, int fp,
-              cudaStream_t stream) {
+int launch_nb(const void* h, const void* b, const void* c, void* out, void* best, int n,
+              int fp, int k, cudaStream_t stream) {
   constexpr int K = 64 * NB;
   const size_t chunk = 3 * 2 * 16 * K * 2;
   // one row stage of both warpgroups
   const size_t rows = static_cast<size_t>(kConsumers) * kTileRows * fp * sizeof(T);
   const size_t fixed = K * sizeof(float) + kBarriers * 8;
   const int nch = fp / kChunk;
+  if (k > K && best == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // M resident with as many row stages as fit; else two row stages and a
   // ring of B chunks.
   int resident = 1, a_stages = kMaxAStages, b_stages = 0;
@@ -614,10 +656,7 @@ int launch_nb(const void* h, const void* b, const void* c, void* out, int n, int
     if (b_stages > kMaxBStages) b_stages = kMaxBStages;
     smem = b_stages * chunk + 2 * rows + fixed;
   }
-  cudaError_t err = cudaFuncSetAttribute(score_argmin_kernel<T, NB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err;
   int device = 0, sms = 0;
   if ((err = cudaGetDevice(&device)) != cudaSuccess ||
       (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
@@ -625,23 +664,38 @@ int launch_nb(const void* h, const void* b, const void* c, void* out, int n, int
     return static_cast<int>(err);
   }
   const int pairs = (n + 2 * kTileRows - 1) / (2 * kTileRows);
-  score_argmin_kernel<T, NB><<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(
-      static_cast<const T*>(h), static_cast<const __nv_bfloat16*>(b),
-      static_cast<const float*>(c), static_cast<int32_t*>(out), n, fp, resident, a_stages,
-      b_stages);
-  return static_cast<int>(cudaGetLastError());
+  const size_t tile_elems = nch * chunk / 2;  // bf16 elements of B per code tile
+  for (int code0 = 0; code0 < k; code0 += K) {
+    const int valid = k - code0 < K ? k - code0 : K;
+    auto kernel = k > K ? (valid < K ? score_argmin_kernel<T, NB, true, true>
+                                     : score_argmin_kernel<T, NB, false, true>)
+                        : (valid < K ? score_argmin_kernel<T, NB, true, false>
+                                     : score_argmin_kernel<T, NB, false, false>);
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    kernel<<<pairs < sms ? pairs : sms, kThreads, smem, stream>>>(
+        static_cast<const T*>(h),
+        static_cast<const __nv_bfloat16*>(b) + (code0 / K) * tile_elems,
+        static_cast<const float*>(c) + code0, static_cast<int32_t*>(out),
+        static_cast<float*>(best), n, fp, resident, a_stages, b_stages, code0, valid);
+    if ((err = cudaGetLastError()) != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }
 
 template <typename T>
-int launch(const void* h, const void* b, const void* c, void* out, int n, int fp, int k,
-           void* stream) {
-  if (n <= 0 || fp <= 0 || fp % kChunk != 0) return static_cast<int>(cudaErrorInvalidValue);
+int launch(const void* h, const void* b, const void* c, void* out, void* best, int n,
+           int fp, int k, int kt, void* stream) {
+  if (n <= 0 || fp <= 0 || fp % kChunk != 0 || k < 1 || k > 65536) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (k) {
-    case 64: return launch_nb<T, 1>(h, b, c, out, n, fp, s);
-    case 128: return launch_nb<T, 2>(h, b, c, out, n, fp, s);
-    case 192: return launch_nb<T, 3>(h, b, c, out, n, fp, s);
-    case 256: return launch_nb<T, 4>(h, b, c, out, n, fp, s);
+  switch (kt) {
+    case 64: return launch_nb<T, 1>(h, b, c, out, best, n, fp, k, s);
+    case 128: return launch_nb<T, 2>(h, b, c, out, best, n, fp, k, s);
+    case 192: return launch_nb<T, 3>(h, b, c, out, best, n, fp, k, s);
+    case 256: return launch_nb<T, 4>(h, b, c, out, best, n, fp, k, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -653,18 +707,20 @@ extern "C" const char* vq_error_string(int err) {
 }
 
 // h [n, fp] (bf16 when h_is_bf16, else f32; fp a multiple of 32), b the
-// prepared operand of M (ops/quantize.py:prepare_scores), c [k] f32
-// -> out int32 [n]. K must be 64, 128, 192 or 256.
+// prepared operand of M in tiles of kt codes (ops/quantize.py:prepare_scores),
+// c [ceil(k / kt) * kt] f32 -> out int32 [n]. kt is 64, 128, 192 or 256 and
+// 1 <= k <= 65536; `best` is f32 [n] scratch, needed when k > kt.
 extern "C" int vq_score_argmin(const void* h, int h_is_bf16, const void* b,
-                               const void* c, void* out, int n, int fp, int k,
-                               void* stream) {
-  if (h_is_bf16) return launch<__nv_bfloat16>(h, b, c, out, n, fp, k, stream);
-  return launch<float>(h, b, c, out, n, fp, k, stream);
+                               const void* c, void* out, void* best, int n, int fp, int k,
+                               int kt, void* stream) {
+  if (h_is_bf16) return launch<__nv_bfloat16>(h, b, c, out, best, n, fp, k, kt, stream);
+  return launch<float>(h, b, c, out, best, n, fp, k, kt, stream);
 }
 
-// z [n, dp] f32, b the prepared operand of -2 E^T, esq = ||e||^2 [k] f32
-// -> out int32 [n].
+// z [n, dp] f32, b the prepared operand of -2 E^T, esq = ||e||^2 (padded as
+// c above) -> out int32 [n].
 extern "C" int vq_nearest_indices(const void* z, const void* b, const void* esq,
-                                  void* out, int n, int dp, int k, void* stream) {
-  return launch<float>(z, b, esq, out, n, dp, k, stream);
+                                  void* out, void* best, int n, int dp, int k, int kt,
+                                  void* stream) {
+  return launch<float>(z, b, esq, out, best, n, dp, k, kt, stream);
 }

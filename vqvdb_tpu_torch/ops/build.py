@@ -37,8 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # entry point -> (source, argument types before the trailing stream)
 ENTRY_POINTS = {
     "vq_dequantize": ("dequantize", (_P, _I, _P, _P, _I, _I, _I)),
-    "vq_score_argmin": ("score_argmin_tc", (_P, _I, _P, _P, _P, _I, _I, _I)),
-    "vq_nearest_indices": ("score_argmin_tc", (_P, _P, _P, _P, _I, _I, _I)),
+    "vq_score_argmin": ("score_argmin_tc", (_P, _I, _P, _P, _P, _P, _I, _I, _I, _I)),
+    "vq_nearest_indices": ("score_argmin_tc", (_P, _P, _P, _P, _P, _I, _I, _I, _I)),
     "vq_residual_block16": ("fused_rb_tc", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F)),
 }
 

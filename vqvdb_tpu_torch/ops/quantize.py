@@ -9,13 +9,15 @@ Three wrappers, one per TPU kernel of the JAX package:
 
 The last two share one tensor-core kernel that takes M split into bf16
 terms (`prepare_scores`, `prepare_codebook`: made once per model by the
-codec, or on the fly when a wrapper is handed raw tensors).
+codec, or on the fly when a wrapper is handed raw tensors). They take any
+codebook size K from 1 to 65,536 (u16 indices): the kernel runs tiles of at
+most 256 codes, one launch per tile (`code_tiles`).
 
 On a CPU tensor a wrapper returns its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its kernel
 launches in a plain int attribute, `<wrapper>.launches`, bumped once per
-launch and nowhere else. Results are int32 indices / rows in the codebook
-dtype on both paths.
+launch (per code tile for the score kernel) and nowhere else. Results are
+int32 indices / rows in the codebook dtype on both paths.
 """
 
 from __future__ import annotations
@@ -138,22 +140,44 @@ def _pad_depth(x: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.nn.functional.pad(x, (0, pad) if dim == 1 else (0, 0, 0, pad))
 
 
+MAX_CODES = 65536  # the range of u16 indices
+MAX_TILE = 256  # codes of one kernel launch: 128 accumulator registers a thread
+
+
+def code_tiles(k: int) -> Tuple[int, int]:
+    """K codes -> (tile width kt, number of tiles): the fewest tiles of at
+    most 256 codes, all of one width, a multiple of 64 (the MMA's N step)."""
+    blocks = -(-k // 64)
+    tiles = -(-blocks // (MAX_TILE // 64))
+    return 64 * -(-blocks // tiles), tiles
+
+
 @dataclasses.dataclass(frozen=True)
 class PreparedScores:
-    """M [F, K] and c [K] in f32 with the kernel's B operand: the three bf16
-    terms of M, depth zero-padded to a multiple of 32, in the byte order of
-    the kernel's shared memory, [F/32 chunks, 3 terms, 2 steps, K/8 code
-    groups, 2 depth halves, 8 codes, 8 depths]: 8 x 8 core matrices of 128
-    contiguous bytes, K-major. A thread of the kernel reads depths
-    32 d + 8 t .. + 7 of its row (t its lane in the quad) and uses values
-    4u .. 4u + 3 in step u, the first pair as MMA depths 2t, 2t + 1 and the
-    second as 2t + 8, 2t + 9, so MMA depth 8 half + 2 t + i of step u of
-    chunk d is true depth 32 d + 8 t + 4 u + 2 half + i. `codebook` is set
-    when M = -2 E^T, c = ||e||^2 were made from one."""
+    """M [F, K] and c [K] in f32 with the kernel's operands: c zero-padded
+    to tiles x kt codes (`c_tiles`), and the three bf16 terms of M, codes
+    zero-padded likewise and depth to a multiple of 32, in the byte order of
+    the kernel's shared memory, [tiles, F/32 chunks, 3 terms, 2 steps, kt/8
+    code groups, 2 depth halves, 8 codes, 8 depths]: per code tile, 8 x 8
+    core matrices of 128 contiguous bytes, K-major. A thread of the kernel
+    reads depths 32 d + 8 t .. + 7 of its row (t its lane in the quad) and
+    uses values 4u .. 4u + 3 in step u, the first pair as MMA depths 2t,
+    2t + 1 and the second as 2t + 8, 2t + 9, so MMA depth 8 half + 2 t + i of
+    step u of chunk d is true depth 32 d + 8 t + 4 u + 2 half + i.
+    `codebook` is set when M = -2 E^T, c = ||e||^2 were made from one."""
     m: torch.Tensor
     c: torch.Tensor
     operand: torch.Tensor
+    c_tiles: torch.Tensor
     codebook: Optional[torch.Tensor] = None
+
+    @property
+    def tile(self) -> int:
+        return self.operand.shape[4] * 8
+
+    @property
+    def tiles(self) -> int:
+        return self.operand.shape[0]
 
 
 def prepare_scores(m: torch.Tensor, c: torch.Tensor,
@@ -161,13 +185,18 @@ def prepare_scores(m: torch.Tensor, c: torch.Tensor,
     """M [F, K] f32, c [K] or [1, K] f32 -> PreparedScores on M's device."""
     _check_scores(m, c)
     k = m.shape[1]
-    terms = torch.stack(split_bf16(_pad_depth(m, 0)))  # [3, Fp, K]
-    # depth -> (chunk d, lane t, step u, half, i); codes -> (group, code)
-    t = terms.reshape(3, -1, 4, 2, 2, 2, k // 8, 8)
-    # -> [d, term, u, group, half, code, t, i]; (t, i) merge into 2 t + i
-    operand = t.permute(1, 0, 3, 6, 4, 7, 2, 5).reshape(-1, 3, 2, k // 8, 2, 8, 8)
-    return PreparedScores(m.contiguous(), c.reshape(-1).contiguous(),
-                          operand.contiguous(), codebook)
+    kt, tiles = code_tiles(k)
+    pad = tiles * kt - k
+    mp = torch.nn.functional.pad(m, (0, pad))
+    terms = torch.stack(split_bf16(_pad_depth(mp, 0)))  # [3, Fp, tiles * kt]
+    # depth -> (chunk d, lane t, step u, half, i); codes -> (tile, group, code)
+    t = terms.reshape(3, -1, 4, 2, 2, 2, tiles, kt // 8, 8)
+    # -> [tile, d, term, u, group, half, code, t, i]; (t, i) merge into 2 t + i
+    operand = t.permute(6, 1, 0, 3, 7, 4, 8, 2, 5).reshape(
+        tiles, -1, 3, 2, kt // 8, 2, 8, 8)
+    c = c.reshape(-1).contiguous()
+    return PreparedScores(m.contiguous(), c, operand.contiguous(),
+                          torch.nn.functional.pad(c, (0, pad)), codebook)
 
 
 def prepare_codebook(codebook: torch.Tensor) -> PreparedScores:
@@ -183,6 +212,12 @@ def score_argmin_split_plain(h_flat: torch.Tensor, m: torch.Tensor,
     products, f32 sums chunk by chunk with the small products first, c added
     last. int32 [N]. (The tensor cores sum inside a product in their own
     order, so scores agree to f32 rounding, not bit for bit.)"""
+    scores = split_scores(h_flat, m) + c.reshape(1, -1)
+    return torch.argmin(scores, dim=1).to(torch.int32)
+
+
+def split_scores(h_flat: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """f32 [N, K] products h @ M as `score_argmin_split_plain` sums them."""
     m_terms = [x.to(torch.float32) for x in split_bf16(_pad_depth(m, 0))]
     if h_flat.dtype == torch.bfloat16:
         h32 = _pad_depth(h_flat.to(torch.float32), 1)
@@ -198,15 +233,14 @@ def score_argmin_split_plain(h_flat: torch.Tensor, m: torch.Tensor,
     for d in range(0, m_terms[0].shape[0], CHUNK):
         for ht, mt in products:
             scores = scores + h_terms[ht][:, d: d + CHUNK] @ m_terms[mt][d: d + CHUNK]
-    return torch.argmin(scores + c.reshape(1, -1), dim=1).to(torch.int32)
+    return scores
 
 
 def _check_scores(m: torch.Tensor, c: torch.Tensor) -> None:
     require(m.dim() == 2, f"want M [F, K], got {tuple(m.shape)}")
     k = m.shape[1]
     require(c.numel() == k, f"c has {c.numel()} entries, M has {k} columns")
-    require(k % 64 == 0 and 64 <= k <= 256,
-             f"the kernel takes K in 64, 128, 192, 256; got {k}")
+    require(1 <= k <= MAX_CODES, f"the kernel takes 1 <= K <= {MAX_CODES}; got {k}")
     require(m.dtype == torch.float32 and c.dtype == torch.float32,
              "M and c must be float32")
 
@@ -216,23 +250,28 @@ SMEM_LIMIT = 232448  # bytes of shared memory a block may take on the H100
 
 def _launch_scores(entry: str, wrapper, rows: torch.Tensor, prep: PreparedScores,
                    *flags: int) -> torch.Tensor:
-    """Checks shared by the two entry points, then the launch."""
+    """Checks shared by the two entry points, then the launches: one per
+    code tile, with a running [N] minimum score between them."""
     f, k = prep.m.shape
     require(rows.dim() == 2 and rows.shape[1] == f,
              f"want rows [N, {f}] for M [{f}, {k}], got {tuple(rows.shape)}")
     rows = _pad_depth(rows, 1).contiguous()
     n, fp = rows.shape
     require(rows.data_ptr() % 16 == 0, "rows are not 16-byte aligned")
+    kt = prep.tile
     # two stages of 64 rows for each of two warpgroups, c, barriers, and at
     # least a two-chunk ring of the B operand
-    need = 4 * 64 * fp * rows.element_size() + 4 * k + 192 + 2 * 192 * k
+    need = 4 * 64 * fp * rows.element_size() + 4 * kt + 192 + 2 * 192 * kt
     require(need <= SMEM_LIMIT, f"rows of depth {f} need {need} B of shared "
              f"memory, the card gives a block {SMEM_LIMIT}")
     out = torch.empty(n, dtype=torch.int32, device=rows.device)
     if n:
+        best = (torch.empty(n, dtype=torch.float32, device=rows.device)
+                if prep.tiles > 1 else None)
         call(entry, rows.device, rows.data_ptr(), *flags, prep.operand.data_ptr(),
-              prep.c.data_ptr(), out.data_ptr(), n, fp, k)
-        wrapper.launches += 1
+              prep.c_tiles.data_ptr(), out.data_ptr(),
+              None if best is None else best.data_ptr(), n, fp, k, kt)
+        wrapper.launches += prep.tiles
     return out
 
 

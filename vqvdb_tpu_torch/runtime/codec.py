@@ -1,4 +1,4 @@
-"""Streaming codec: leaf batches <-> device <-> `.vqvdb` v3 files
+"""Streaming codec: leaf batches <-> device <-> `.vqvdb` files, v3 to v6
 (counterpart of `vqvdb_tpu/runtime/codec.py`).
 
 Every device step runs at exactly `CodecConfig.batch_size` leaves (the
@@ -10,21 +10,25 @@ has been enqueued, so host I/O overlaps device work. On the CPU the same
 loop runs synchronously.
 
 Encode:  leaves -> encoder features -> score-argmin kernel (the 1x1
-         projection folded in) -> u8 indices [B,4,4,4]. The reference
+         projection folded in) -> indices [B,4,4,4]. The reference
          encoder runs its strided conv folded onto the packed grid
          (`pack_down_conv`) and, for scalar input, its 16-channel residual
          block as the fused kernel (`fuse_rb16`).
          With `fuse_proj_quantize=False`: projection -> nearest-code kernel.
          Residual-VQ models (S stages): projection -> per stage the
-         nearest-code and dequantize kernels -> u8 indices [B,4,4,4,S].
-Decode:  u8 indices -> dequantize kernel (once per stage, rows summed) ->
+         nearest-code and dequantize kernels -> indices [B,4,4,4,S].
+Decode:  indices -> dequantize kernel (once per stage, rows summed) ->
          decoder pre-tail -> folded tail GEMM + sigmoid / tanh (or the
          three tail ops with `fuse_decoder_tail=False`).
 
-Every committed `models/*.vqmodel` runs: packed, packed_lite and reference
-encoders, scalar and vec3, one or two quantizer stages. Not ported yet: the
-packed_stem encoder, `compress_stream`, `decode_stream`, grid/bbox
-selection, the v4-v6 tiers and residuals, and the mesh.
+Indices are u8 for K <= 256; for larger codebooks u16 on the host (int16
+bits in the pinned buffers) and int32 on the card. Files: v3 by default,
+v4 when K > 256, v5 (compressed frames) and v6 (with the near-lossless
+residual, whose encode batches also run the decode step, so the stored
+correction is measured against the decode that `decompress` repeats).
+`decode_stream` / `decompress` select grids by name and leaves by bounding
+box; `compress_stream` encodes lazily read leaf streams. Not ported yet: the
+packed_stem encoder and the mesh.
 """
 
 from __future__ import annotations
@@ -59,6 +63,7 @@ from vqvdb_tpu_torch.ops.quantize import (
     prepare_scores,
 )
 from vqvdb_tpu_torch.ops.tail import apply_decoder_tail, fold_decoder_tail
+from vqvdb_tpu_torch.runtime.residual import RESIDUAL_MODES, apply_residual, quantize_residual
 from vqvdb_tpu_torch.utils.errors import ModelMismatchError
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
 
@@ -67,14 +72,16 @@ PIPELINE_DEPTH = 2
 
 class _Slot:
     """One pipeline stage's host buffers (pinned on the card) and the event
-    that marks its device->host copy done."""
+    that marks its device->host copies done. Each buffer is given as (shape,
+    (torch dtype, numpy dtype)): a u16 index buffer is int16 in torch, and
+    `inp_dtype` / the `outs_np` views carry the numpy dtype."""
 
-    def __init__(self, in_shape, in_dtype, out_shape, out_dtype,
-                 device: torch.device):
+    def __init__(self, inp, outs, device: torch.device):
         pin = device.type == "cuda"
-        self.inp = torch.empty(in_shape, dtype=in_dtype, pin_memory=pin)
-        self.out = torch.empty(out_shape, dtype=out_dtype, pin_memory=pin)
-        self.out_np = self.out.numpy()
+        self.inp = torch.empty(inp[0], dtype=inp[1][0], pin_memory=pin)
+        self.inp_dtype = np.dtype(inp[1][1])
+        self.outs = [torch.empty(shape, dtype=dt[0], pin_memory=pin) for shape, dt in outs]
+        self.outs_np = [t.numpy().view(dt[1]) for t, (_, dt) in zip(self.outs, outs)]
         self.done = torch.cuda.Event() if pin else None
 
 
@@ -133,6 +140,9 @@ class VQCodec:
                 k: v.to(self.device) for k, v in fold_strided_conv(
                     np.asarray(down["w"]), np.asarray(down["b"])).items()}
         self._slots: Dict[str, List[_Slot]] = {}
+        # (torch, numpy) dtypes of host index buffers: u8, or u16 as int16 bits
+        self._host_idx = ((torch.uint8, np.uint8) if self.mcfg.num_embeddings <= 256
+                          else (torch.int16, np.uint16))
 
     # -- device steps ----------------------------------------------------
     def _features(self, x: torch.Tensor) -> torch.Tensor:
@@ -147,7 +157,8 @@ class VQCodec:
 
     @torch.inference_mode()
     def _encode_step(self, leaves: torch.Tensor) -> torch.Tensor:
-        """[B,8,8,8,C] f32 -> [B,4,4,4] (or [B,4,4,4,S] residual-VQ) uint8."""
+        """[B,8,8,8,C] f32 -> [B,4,4,4] (or [B,4,4,4,S] residual-VQ) indices:
+        uint8 for K <= 256, else int32."""
         x = leaves.to(self.dtype)
         b = x.shape[0]
         enc = self.params["encoder"]
@@ -162,11 +173,13 @@ class VQCodec:
                                   self._stage_prep)
             else:
                 idx = fused_nearest_indices(flat, self._stage_prep[0])
-        return idx.reshape((b,) + self.mcfg.index_shape).to(torch.uint8)
+        idx = idx.reshape((b,) + self.mcfg.index_shape)
+        return idx.to(torch.uint8) if self.mcfg.num_embeddings <= 256 else idx
 
     @torch.inference_mode()
     def _decode_step(self, indices: torch.Tensor) -> torch.Tensor:
-        """[B,4,4,4] (or [B,4,4,4,S] residual-VQ) uint8 -> [B,8,8,8,C] f32."""
+        """[B,4,4,4] (or [B,4,4,4,S] residual-VQ) uint8 or int32 indices ->
+        [B,8,8,8,C] f32."""
         b = indices.shape[0]
         if self.mcfg.num_quantizers > 1:
             z = rvq_dequantize(indices.reshape(-1, self.mcfg.num_quantizers),
@@ -197,20 +210,34 @@ class VQCodec:
     def _slots_for(self, kind: str) -> List[_Slot]:
         if kind not in self._slots:
             bs = self.ccfg.batch_size
-            leaf = (bs, LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels)
-            idx = (bs,) + self.mcfg.index_shape
-            shapes = ((leaf, torch.float32, idx, torch.uint8) if kind == "encode"
-                      else (idx, torch.uint8, leaf, torch.float32))
-            self._slots[kind] = [_Slot(*shapes, self.device)
+            leaf = ((bs, LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels),
+                    (torch.float32, np.float32))
+            idx = ((bs,) + self.mcfg.index_shape, self._host_idx)
+            inp, outs = {"encode": (leaf, [idx]), "decode": (idx, [leaf]),
+                         "residual": (leaf, [idx, leaf])}[kind]
+            self._slots[kind] = [_Slot(inp, outs, self.device)
                                  for _ in range(PIPELINE_DEPTH)]
         return self._slots[kind]
 
+    def _steps(self, kind: str, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """A staged batch through the device step(s) of `kind`: "encode"
+        (leaves -> indices), "decode" (indices -> leaves) or "residual"
+        (leaves -> indices, and those indices, still on the device, through
+        the decode step as `decompress` runs it)."""
+        if kind == "decode":
+            if x.dtype == torch.int16:  # u16 bits
+                x = x.to(torch.int32) & 0xFFFF
+            return (self._decode_step(x),)
+        idx = self._encode_step(x)
+        host = idx.to(self._host_idx[0])
+        return (host,) if kind == "encode" else (host, self._decode_step(idx))
+
     def _pipelined(self, kind: str, batches: Iterable[Tuple[np.ndarray, object]]
-                   ) -> Iterator[Tuple[np.ndarray, object, int]]:
+                   ) -> Iterator[Tuple[List[np.ndarray], object, int]]:
         """Run each (host batch of <= batch_size rows, tag) through the
-        encode or decode step; yields (host result rows, tag, n). A yielded
-        array is a view of a reused buffer: use it before the next one."""
-        step: Callable = self._encode_step if kind == "encode" else self._decode_step
+        device steps of `kind` (`_steps`); yields (host result rows per
+        output, tag, n). A yielded array is a view of a reused buffer: use
+        it before the next one."""
         slots = self._slots_for(kind)
         cuda = self.device.type == "cuda"
         pending: collections.deque = collections.deque()
@@ -222,10 +249,16 @@ class VQCodec:
             # A slot is reused only after _collect has waited on its event.
             slot = slots[dispatched % PIPELINE_DEPTH]
             dispatched += 1
-            slot.inp[:n].copy_(torch.from_numpy(np.ascontiguousarray(chunk)))
+            src = np.ascontiguousarray(chunk, slot.inp_dtype)
+            if not src.flags.writeable:  # a frame read from a file
+                src = src.copy()
+            # torch copies (in threads) what numpy would copy in one
+            slot.inp[:n].copy_(torch.from_numpy(src.view(np.int16) if src.dtype == np.uint16
+                                                else src))
             slot.inp[n:].zero_()
-            res = step(slot.inp.to(self.device, non_blocking=True))
-            slot.out.copy_(res, non_blocking=cuda)
+            results = self._steps(kind, slot.inp.to(self.device, non_blocking=True))
+            for out, res in zip(slot.outs, results):
+                out.copy_(res, non_blocking=cuda)
             if cuda:
                 slot.done.record()
             pending.append((slot, tag, n))
@@ -235,11 +268,11 @@ class VQCodec:
             yield self._collect(pending.popleft())
 
     @staticmethod
-    def _collect(item) -> Tuple[np.ndarray, object, int]:
+    def _collect(item) -> Tuple[List[np.ndarray], object, int]:
         slot, tag, n = item
         if slot.done is not None:
             slot.done.synchronize()
-        return slot.out_np[:n], tag, n
+        return [a[:n] for a in slot.outs_np], tag, n
 
     def _batches(self, data: np.ndarray):
         bs = self.ccfg.batch_size
@@ -248,111 +281,349 @@ class VQCodec:
 
     # -- array-level API -------------------------------------------------
     def encode_leaves(self, leaves: np.ndarray) -> np.ndarray:
-        """Encode [N,8,8,8,C] (or [N,8,8,8]) f32 -> [N,4,4,4] u8
-        ([N,4,4,4,S] residual-VQ), batched."""
+        """Encode [N,8,8,8,C] (or [N,8,8,8]) f32 -> [N,4,4,4] indices
+        ([N,4,4,4,S] residual-VQ), u8 or u16 by the model's index dtype."""
         leaves = np.asarray(leaves, np.float32)
         if leaves.ndim == 4:
             leaves = leaves[..., None]
         out = np.empty((leaves.shape[0],) + self.mcfg.index_shape,
                        self.mcfg.index_dtype)
-        for rows, s, n in self._pipelined("encode", self._batches(leaves)):
+        for (rows,), s, n in self._pipelined("encode", self._batches(leaves)):
             out[s: s + n] = rows
         return out
 
     def decode_indices(self, indices: np.ndarray) -> np.ndarray:
-        """Decode [N,4,4,4] (or [N,4,4,4,S]) u8 -> [N,8,8,8,C] f32, batched."""
+        """Decode [N,4,4,4] (or [N,4,4,4,S]) u8 / u16 indices ->
+        [N,8,8,8,C] f32, batched."""
         indices = np.asarray(indices, self.mcfg.index_dtype)
         out = np.empty((indices.shape[0], LEAF_DIM, LEAF_DIM, LEAF_DIM,
                         self.mcfg.in_channels), np.float32)
-        for rows, s, n in self._pipelined("decode", self._batches(indices)):
+        for (rows,), s, n in self._pipelined("decode", self._batches(indices)):
             out[s: s + n] = rows
         return out
 
     # -- file-level API --------------------------------------------------
+    def _resolve_format(self, format_version: Optional[int], residual: Optional[str],
+                        residual_tol: Optional[float]) -> int:
+        """Option checks and the format default shared by compress and
+        compress_stream (whose files must be byte-identical): a residual
+        forces v6; otherwise v3, or v4 when K > 256."""
+        if residual is not None:
+            if residual not in RESIDUAL_MODES:
+                raise ValueError(f"unknown residual mode {residual!r}")
+            if residual_tol is not None and residual != "int8":
+                raise ValueError("residual_tol applies to the int8 mode only")
+            if format_version is None:
+                format_version = 6
+            elif format_version != 6:
+                raise ValueError("residual correction requires format version 6")
+        if format_version is None:
+            format_version = 3 if self.mcfg.num_embeddings <= 256 else 4
+        return format_version
+
+    def _grid_meta(self, name: str, total_blocks: int, transform, channels: int,
+                   residual: Optional[str]) -> GridMetadata:
+        return GridMetadata(
+            name=name, num_embeddings=self.mcfg.num_embeddings,
+            latent_shape=self.mcfg.index_shape, total_blocks=total_blocks,
+            transform=transform,
+            residual_mode=0 if residual is None else {"int8": 1, "f16": 2}[residual],
+            residual_channels=0 if residual is None else channels)
+
+    @staticmethod
+    def _write_rows(w: VqvdbWriter, outs, origins, leaves, residual, residual_tol,
+                    host: Dict[str, float]) -> None:
+        """One batch of encode results into the file; with a residual, the
+        error of the decoded rows against `leaves` is quantized first. The
+        host seconds of each part accumulate in `host`."""
+        t0 = time.perf_counter()
+        scales = q = None
+        if residual is not None:
+            scales, q = quantize_residual(leaves - outs[1], residual, residual_tol)
+        t1 = time.perf_counter()
+        w.write_batch(outs[0], origins, scales, q)
+        host["quantize_residual"] += t1 - t0
+        host["write_frames"] += time.perf_counter() - t1
+
+    @staticmethod
+    def _stats(total: int, t0: float, host: Dict[str, float]) -> dict:
+        dt = time.perf_counter() - t0
+        return {"leaves": total, "seconds": dt,
+                "leaves_per_sec": total / dt if dt > 0 else float("inf"),
+                "host_seconds": host}
+
     def compress(
         self,
         grids: Union[LeafGrid, Sequence[LeafGrid]],
         out_path: Union[str, Path],
         *,
+        progress: bool = False,
+        format_version: Optional[int] = None,
+        compression: str = "zlib",
+        residual: Optional[str] = None,
+        residual_tol: Optional[float] = None,
         should_stop: Optional[Callable[[], bool]] = None,
     ) -> dict:
-        """Encode grids and stream them to a `.vqvdb` v3 file.
+        """Encode grids and stream them to a `.vqvdb` file.
 
+        format_version: 3 (default for K <= 256), 4 (default beyond), 5 or 6.
+        compression: the v5/v6 frame codec (zlib, lzma or lz4; ignored for
+            v3/v4).
+        residual ("int8" | "f16" | None): the v6 near-lossless tier. Each
+            batch's indices also run through the decode step, and the error
+            of that reconstruction is quantized and stored beside them
+            (`runtime/residual.py`); forces v6. residual_tol (int8) floors
+            the step at 2*tol.
         should_stop (checked between batches) requests a graceful abort:
-        batches written so far are kept, the open grid's block count is
-        patched (VqvdbWriter.abort_grid), later grids are skipped, and the
-        stats dict says "aborted": True.
-        Returns {leaves, seconds, leaves_per_sec, bytes, aborted}.
+            batches written so far are kept, the open grid's block count is
+            patched (VqvdbWriter.abort_grid), later grids are skipped, and
+            the stats say "aborted": True.
+        Returns {leaves, seconds, leaves_per_sec, host_seconds, bytes,
+        aborted}; host_seconds splits the host's residual quantization and
+        frame writing (compression included) from the rest.
         """
         if isinstance(grids, LeafGrid):
             grids = [grids]
+        format_version = self._resolve_format(format_version, residual, residual_tol)
         stop = should_stop if should_stop is not None else (lambda: False)
+        kind = "encode" if residual is None else "residual"
+        host = {"quantize_residual": 0.0, "write_frames": 0.0}
         aborted = False
         t0 = time.perf_counter()
         total = 0
-        with VqvdbWriter(out_path) as w:
+        with VqvdbWriter(out_path, version=format_version, compression=compression) as w:
             for grid in grids:
                 if aborted:
                     break
-                w.start_grid(GridMetadata(
-                    name=grid.name, num_embeddings=self.mcfg.num_embeddings,
-                    latent_shape=self.mcfg.index_shape,
-                    total_blocks=grid.num_leaves, transform=grid.transform))
-                for idx, s, n in self._pipelined("encode",
-                                                 self._batches(grid.leaves)):
+                w.start_grid(self._grid_meta(grid.name, grid.num_leaves, grid.transform,
+                                             grid.channels, residual))
+                for outs, s, n in self._pipelined(kind, self._batches(grid.leaves)):
                     if stop():
                         aborted = True
                         break
-                    w.write_batch(idx, grid.origins[s: s + n])
+                    self._write_rows(w, outs, grid.origins[s: s + n],
+                                     grid.leaves[s: s + n], residual, residual_tol, host)
                     total += n
+                    if progress:
+                        print(f"[compress] {grid.name}: {s + n}/{grid.num_leaves}")
                 w.abort_grid() if aborted else w.end_grid()
-        dt = time.perf_counter() - t0
-        return {
-            "leaves": total,
-            "seconds": dt,
-            "leaves_per_sec": total / dt if dt > 0 else float("inf"),
-            "bytes": Path(out_path).stat().st_size,
-            "aborted": aborted,
-        }
+        stats = self._stats(total, t0, host)
+        stats.update(bytes=Path(out_path).stat().st_size, aborted=aborted)
+        return stats
 
-    def decompress(self, in_path: Union[str, Path]) -> Tuple[List[LeafGrid], dict]:
-        """Decode every grid of a `.vqvdb` v3 file into LeafGrids.
-        Returns (grids, {leaves, seconds, leaves_per_sec})."""
+    def compress_stream(
+        self,
+        streams,
+        out_path: Union[str, Path],
+        *,
+        progress: bool = False,
+        format_version: Optional[int] = None,
+        compression: str = "zlib",
+        residual: Optional[str] = None,
+        residual_tol: Optional[float] = None,
+        should_stop: Optional[Callable[[], bool]] = None,
+    ) -> dict:
+        """`compress` from lazily read leaf streams, holding O(batch) leaves.
+
+        `streams` is one object or a sequence of objects with .name,
+        .transform, .num_leaves, .channels, .origins [N,3] and
+        .leaf_batches(batch_size) -> iterator of [n,8,8,8,C] f32 arrays of
+        any n. They are re-chunked to full batches, so a stream of a grid's
+        leaves writes the file that `compress` of the grid writes, byte for
+        byte. should_stop is checked before each batch is dispatched; the
+        batches in flight are still written."""
+        if not isinstance(streams, (list, tuple)):
+            streams = [streams]
+        format_version = self._resolve_format(format_version, residual, residual_tol)
+        stop = should_stop if should_stop is not None else (lambda: False)
+        kind = "encode" if residual is None else "residual"
+        host = {"quantize_residual": 0.0, "write_frames": 0.0}
+        bs = self.ccfg.batch_size
+        aborted = False
         t0 = time.perf_counter()
-        out_grids: List[LeafGrid] = []
         total = 0
+
+        def rechunk(it):
+            """Arrays of any length -> exact-bs chunks (and a ragged tail),
+            holding at most one extra batch."""
+            buf, have = [], 0
+            for a in it:
+                if not a.shape[0]:
+                    continue
+                buf.append(np.asarray(a, np.float32))
+                have += a.shape[0]
+                while have >= bs:
+                    cat = np.concatenate(buf) if len(buf) > 1 else buf[0]
+                    yield cat[:bs]
+                    rest = cat[bs:]
+                    buf, have = ([rest] if rest.shape[0] else []), rest.shape[0]
+            if have:
+                yield np.concatenate(buf) if len(buf) > 1 else buf[0]
+
+        with VqvdbWriter(out_path, version=format_version, compression=compression) as w:
+            for stream in streams:
+                if aborted:
+                    break
+                w.start_grid(self._grid_meta(stream.name, stream.num_leaves,
+                                             np.asarray(stream.transform, np.float32),
+                                             stream.channels, residual))
+                cursor = 0
+
+                def batches(stream=stream):
+                    nonlocal aborted, cursor
+                    for chunk in rechunk(stream.leaf_batches(bs)):
+                        if stop():
+                            aborted = True
+                            return
+                        org = stream.origins[cursor: cursor + chunk.shape[0]]
+                        cursor += chunk.shape[0]
+                        yield chunk, (org, chunk)
+
+                for outs, (org, chunk), n in self._pipelined(kind, batches()):
+                    self._write_rows(w, outs, org, chunk, residual, residual_tol, host)
+                    total += n
+                    if progress:
+                        print(f"[compress] {stream.name}: {total} leaves")
+                if aborted:
+                    w.abort_grid()
+                    continue
+                if cursor != stream.num_leaves:
+                    raise ValueError(f"stream '{stream.name}' yielded {cursor} leaves, "
+                                     f"declared {stream.num_leaves}")
+                w.end_grid()
+        stats = self._stats(total, t0, host)
+        stats.update(bytes=Path(out_path).stat().st_size, aborted=aborted)
+        return stats
+
+    def _decode_stream_host(self, in_path: Union[str, Path], grids, bbox,
+                            host: Dict[str, float]):
+        """decode_stream's core: yields (grid metadata, decoded rows [n,...]
+        as a view of a reused pinned buffer, origins, n, scales, residual)
+        per full batch of the selection. scales / residual are None for
+        grids without residuals; the host seconds spent reading (and
+        decompressing) frames accumulate in host["read_frames"]."""
+        names = None
+        if grids is not None:
+            names = {grids} if isinstance(grids, str) else set(grids)
+        lo = hi = None
+        if bbox is not None:
+            lo = np.asarray(bbox[0], np.int64).reshape(3)
+            hi = np.asarray(bbox[1], np.int64).reshape(3)
         bs = self.ccfg.batch_size
         with VqvdbReader(in_path) as r:
             if r.num_embeddings != self.mcfg.num_embeddings:
                 raise ModelMismatchError(
                     f"file has {r.num_embeddings} embeddings, model has "
                     f"{self.mcfg.num_embeddings}")
-            while r.has_next_grid():
-                meta = r.next_grid_metadata()
-                if tuple(meta.latent_shape) != self.mcfg.index_shape:
-                    raise ModelMismatchError(
-                        f"file latent shape {meta.latent_shape} != model "
-                        f"{self.mcfg.index_shape}")
-                leaves = np.empty((meta.total_blocks, LEAF_DIM, LEAF_DIM,
-                                   LEAF_DIM, self.mcfg.in_channels), np.float32)
-                origins = np.empty((meta.total_blocks, 3), np.int32)
 
-                def batches():
-                    cursor = 0
+            def read():
+                t0 = time.perf_counter()
+                got = r.next_batch_residual(bs)
+                host["read_frames"] += time.perf_counter() - t0
+                return got
+
+            def batches():
+                """Full batches of the selected leaves, grid by grid; the
+                host arrays (origins, scales, residual) ride along as the
+                tag, filtered and regrouped with the indices."""
+                while r.has_next_grid():
+                    meta = r.next_grid_metadata()
+                    if names is not None and meta.name not in names:
+                        r.skip_grid_payload()
+                        continue
+                    if tuple(meta.latent_shape) != self.mcfg.index_shape:
+                        raise ModelMismatchError(
+                            f"file latent shape {meta.latent_shape} != model "
+                            f"{self.mcfg.index_shape}")
+                    if meta.residual_mode and meta.residual_channels != self.mcfg.in_channels:
+                        raise ModelMismatchError(
+                            f"file residual stream has {meta.residual_channels} "
+                            f"channels, model decodes {self.mcfg.in_channels}")
+                    carry = None
                     while r.has_next():
-                        idx, org = r.next_batch(bs)
-                        origins[cursor: cursor + idx.shape[0]] = org
-                        yield idx, cursor
-                        cursor += idx.shape[0]
+                        idx, *hosts = read()
+                        if lo is not None:
+                            keep = (np.all(hosts[0] < hi, axis=1)
+                                    & np.all(hosts[0] + LEAF_DIM > lo, axis=1))
+                            idx = idx[keep]
+                            hosts = [None if h is None else h[keep] for h in hosts]
+                            if idx.shape[0] == 0:
+                                continue
+                        if carry is not None:
+                            idx = np.concatenate([carry[0], idx])
+                            hosts = [None if a is None else np.concatenate([a, b])
+                                     for a, b in zip(carry[1], hosts)]
+                            carry = None
+                        while idx.shape[0] >= bs:
+                            yield idx[:bs], (meta, *[None if h is None else h[:bs]
+                                                     for h in hosts])
+                            idx = idx[bs:]
+                            hosts = [None if h is None else h[bs:] for h in hosts]
+                        if idx.shape[0]:
+                            carry = (idx, hosts)
+                    if carry is not None:
+                        yield carry[0], (meta, *carry[1])
 
-                for rows, s, n in self._pipelined("decode", batches()):
-                    leaves[s: s + n] = rows
-                    total += n
-                out_grids.append(LeafGrid(name=meta.name, origins=origins,
-                                          leaves=leaves, transform=meta.transform))
-        dt = time.perf_counter() - t0
-        return out_grids, {
-            "leaves": total,
-            "seconds": dt,
-            "leaves_per_sec": total / dt if dt > 0 else float("inf"),
-        }
+            for (rows,), (meta, org, sc, res), n in self._pipelined("decode", batches()):
+                yield meta, rows, org, n, sc, res
+
+    def decode_stream(self, in_path: Union[str, Path], *, grids=None, bbox=None):
+        """Memory-bounded streaming decode: yields (grid metadata, leaves
+        [n,8,8,8,C] f32, origins [n,3] i32) per batch, arrays the caller
+        owns. Only O(batch_size) leaves are resident at once.
+
+        grids: a name or iterable of names; other grids' payloads are
+            skipped on disk without decompression or decoding.
+        bbox: voxel-space ((x0,y0,z0),(x1,y1,z1)), lower inclusive, upper
+            exclusive; only leaves intersecting the box are decoded, re-packed
+            into full device batches.
+        v6 residual grids are corrected on the host (`runtime/residual.py`).
+        """
+        host = {"read_frames": 0.0}
+        for meta, rows, org, n, sc, res in self._decode_stream_host(in_path, grids, bbox,
+                                                                    host):
+            leaves = rows.copy()
+            apply_residual(leaves, sc, res)
+            yield meta, leaves, org
+
+    def decompress(self, in_path: Union[str, Path], *, progress: bool = False,
+                   grids=None, bbox=None) -> Tuple[List[LeafGrid], dict]:
+        """Decode a `.vqvdb` file (v3 to v6) into LeafGrids; `grids` / `bbox`
+        select as in `decode_stream`, and a grid with nothing selected is
+        left out. Returns (grids, {leaves, seconds, leaves_per_sec,
+        host_seconds}); host_seconds splits frame reading (decompression
+        included) and the v6 correction from the rest."""
+        t0 = time.perf_counter()
+        host = {"read_frames": 0.0, "apply_residual": 0.0}
+        out_grids: List[LeafGrid] = []
+        total = cursor = 0
+        cur_meta = leaves_out = origins_out = None
+        blk = (LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels)
+
+        def finish():
+            if cur_meta is not None:
+                out_grids.append(LeafGrid(name=cur_meta.name, origins=origins_out[:cursor],
+                                          leaves=leaves_out[:cursor],
+                                          transform=cur_meta.transform))
+
+        for meta, rows, origins, n, sc, res in self._decode_stream_host(in_path, grids,
+                                                                        bbox, host):
+            if meta is not cur_meta:
+                finish()
+                cur_meta, cursor = meta, 0
+                # total_blocks over-allocates under a bbox selection; finish()
+                # keeps what was decoded.
+                leaves_out = np.empty((meta.total_blocks,) + blk, np.float32)
+                origins_out = np.empty((meta.total_blocks, 3), np.int32)
+                if progress:
+                    print(f"[decompress] {meta.name}: {meta.total_blocks} leaves")
+            dst = leaves_out[cursor: cursor + n]
+            dst[...] = rows
+            t1 = time.perf_counter()
+            apply_residual(dst, sc, res)
+            host["apply_residual"] += time.perf_counter() - t1
+            origins_out[cursor: cursor + n] = origins
+            cursor += n
+            total += n
+        finish()
+        return out_grids, self._stats(total, t0, host)

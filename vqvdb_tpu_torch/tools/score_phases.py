@@ -71,7 +71,7 @@ def build_variants(workdir: Path):
             raise RuntimeError(f"{name}: nvcc failed\n{out}")
         lib = ctypes.CDLL(str(workdir / f"{name}.so"))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.vq_score_argmin.argtypes = [p, i, p, p, p, i, i, i, p]
+        lib.vq_score_argmin.argtypes = [p, i, p, p, p, p, i, i, i, i, p]
         lib.vq_score_argmin.restype = i
         libs[name] = lib
     return libs
@@ -97,12 +97,13 @@ def main() -> int:
             c = torch.randn(k, device=dev, generator=gen)
             prep = q.prepare_scores(m, c)
             out = torch.empty(n, dtype=torch.int32, device=dev)
+            best = torch.empty(n, dtype=torch.float32, device=dev)
 
             def launch(lib, rows=n):
                 status = lib.vq_score_argmin(
                     h.data_ptr(), int(dtype == torch.bfloat16), prep.operand.data_ptr(),
-                    prep.c.data_ptr(), out.data_ptr(), rows, f, k,
-                    torch.cuda.current_stream().cuda_stream)
+                    prep.c_tiles.data_ptr(), out.data_ptr(), best.data_ptr(), rows, f, k,
+                    prep.tile, torch.cuda.current_stream().cuda_stream)
                 if status:
                     raise RuntimeError(f"launch failed: {status}")
 
