@@ -39,8 +39,11 @@ Phases, in this order; any failure raises and the script exits non-zero:
      f32, counters reset around it; its indices must equal the fused f32
      path's except on near-ties.
   9. parity: 1,024 leaves through a `cuda` and a `cpu` codec in f32 (TF32
-     off for cuDNN and cuBLAS), for the flagship, the reference arch and
-     the residual-VQ model. A residual-VQ row is compared stage by stage:
+     off for cuDNN and cuBLAS), for every shipped artifact: the flagship,
+     the reference arch, the residual-VQ model and packed_lite on the scalar
+     field, vec3 and vec3_rvq2 on the 3-channel one. A residual-VQ row
+     (two nearest-code and two dequantize launches per encode batch) is
+     compared stage by stage:
      a row that differs at a stage must be a near-tie of that stage's
      scores, and its later stages (which code another residual) are skipped.
  10. container tiers: the phase-3 codec compresses and decompresses the
@@ -60,6 +63,22 @@ Phases, in this order; any failure raises and the script exits non-zero:
      through v4 (u16 indices, some above 255), with the score kernel's 16
      code tiles per batch counted; then the kernel row `score_argmin_k4096`
      at F=64, K=4096 as in phase 4.
+ 12. user path: the flagship at full width on the --leaves leaves written as
+     an OpenVDB .vdb (`vdb/openvdb_io.py`): `vqvdb_tpu_torch.cli` encode to
+     .vqvdb (and encode --streaming), both byte-identical to compress of
+     the grid the .vdb holds; decode to .vdb, equal to decompress and above
+     the PSNR floor; `api.decode_dense` of the v3 file and of a v6-int8 file
+     (a CUDA tensor, bit-equal to decompress + LeafGrid.to_dense, the int8
+     bound held), one dequantize launch per decode step; `api.encode_dense`
+     from that tensor, byte-identical to compress(LeafGrid.from_dense(...)),
+     one score-argmin launch per encode step; then dense and sparse rates in
+     turns.
+ 13. deep rows: derived models of the flagship's graph with weights from
+     --seed take the kernels where no shipped model does: the score kernel
+     on f32 rows of depth 160 and bf16 rows of depth 1024 and the
+     nearest-code kernel at D = 160 (the streamed-depth mode), and the
+     dequantize kernel on 40-byte bf16 rows (D = 20), each on a codec path
+     with counters around it, then against its plain version.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -251,7 +270,6 @@ def kernel_phase(codec, grid):
     """Phase 4: each kernel against its plain version at main-path shapes."""
     import torch
 
-    from vqvdb_tpu_torch.models.quantizer import dequantize, nearest_indices, nearest_scores
     from vqvdb_tpu_torch.models.vqvae import encoder_apply, encoder_features
     from vqvdb_tpu_torch.ops import quantize as q
 
@@ -269,65 +287,88 @@ def kernel_phase(codec, grid):
             raise AssertionError(f"kernel phase wants {BATCH_ROWS} rows")
 
         # -- dequantize: u8 file indices, bf16 codebook (the decode step)
-        cb = emb.to(torch.bfloat16)
         idx_u8 = q.fused_score_argmin(h_bf16, m, c).to(torch.uint8)
-        got = q.fused_dequantize(idx_u8, cb)
-        err = (got.float() - dequantize(idx_u8, cb).float()).abs().max().item()
-        if not torch.equal(got, dequantize(idx_u8, cb)):
-            raise AssertionError("dequantize: kernel rows differ from plain")
-        idx_i32 = idx_u8.to(torch.int32)
-        idx_i32[::9973] = 300  # out of range -> zero rows
-        idx_i32[1::9973] = -1
-        for cbx in (cb, emb):
-            got = q.fused_dequantize(idx_i32, cbx)
-            if not torch.equal(got, dequantize(idx_i32, cbx)):
-                raise AssertionError(f"dequantize: int32/{cbx.dtype} differs from plain")
-            if got[::9973].any() or got[1::9973].any():
-                raise AssertionError("dequantize: out-of-range rows are not zero")
-        nbytes = BATCH_ROWS * 1 + cb.numel() * 2 + BATCH_ROWS * 128 * 2
-        idx_lib = idx_u8.to(torch.int32)
-        rows.append(dict(
-            name="dequantize", route="cuda",
-            source="vqvdb_tpu_torch/csrc/dequantize.cu",
-            replaces="vqvdb_tpu/ops/quantize.py:110",
-            max_abs_err=err,
-            ms=cuda_ms(lambda: q.fused_dequantize(idx_u8, cb), graph=True),
-            plain_ms=cuda_ms(lambda: dequantize(idx_u8, cb)),
-            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=cuda_ms(lambda: cb.index_select(0, idx_lib)),
-            check="bit-equal, u8 and int32 (out-of-range rows zero), bf16 and f32"))
+        rows.append(dequantize_row("dequantize", idx_u8, emb))
 
         # -- score-argmin: h [N, 64] (f32 check, bf16 as the encode step runs)
         rows.append(score_argmin_row("score_argmin", h_f32, h_bf16, m, c))
         rows.append(score_argmin_row("score_argmin_f32", h_f32, h_bf16, m, c, timed=h_f32))
 
         # -- nearest: z [N, 128] f32 against the codebook
-        scores = nearest_scores(z, emb)
-        got = q.fused_nearest_indices(z, emb)
-        mis, ties, regret = index_check("nearest_indices", got, scores)
-        e64 = emb.double()
-        missed, plain_missed = terms_check(
-            "nearest_indices", got, scores,
-            (e64 * e64).sum(1)[None, :] - 2.0 * (z.double() @ e64.T))
-        planted = non_finite_check("nearest_indices", z,
-                                   lambda x: q.fused_nearest_indices(x, emb),
-                                   lambda x: nearest_indices(x, emb))
-        esq = (emb * emb).sum(1)
-        mt = -2.0 * emb.T
-        prep = q.prepare_codebook(emb)
-        rows.append(dict(
-            name="nearest_indices", route="cuda",
-            source="vqvdb_tpu_torch/csrc/score_argmin_tc.cu",
-            replaces="vqvdb_tpu/ops/quantize.py:41",
-            max_abs_err=regret, mismatches=mis,
-            ms=cuda_ms(lambda: q.fused_nearest_indices(z, prep), graph=True),
-            plain_ms=cuda_ms(lambda: nearest_indices(z, emb)),
-            **score_bound(BATCH_ROWS, z.shape[1], emb.shape[0], 4, products=6),
-            library_ms=cuda_ms(lambda: torch.addmm(esq, z, mt).argmin(1)),
-            check=f"f32: {mis} mismatches / {ties} near-tie rows, max regret {regret:.3g}, "
-                  f"off the f64 argmin {missed} (plain f32: {plain_missed}); "
-                  f"{planted} non-finite rows equal plain"))
+        rows.append(nearest_row("nearest_indices", z, emb))
     return rows
+
+
+def dequantize_row(name, idx_u8, emb):
+    """The dequantize kernel on u8 indices and the codebook in bf16 (the
+    decode step's), and on int32 indices with some out of range in bf16 and
+    f32: bit-equal to the plain version, zero rows out of range."""
+    import torch
+
+    from vqvdb_tpu_torch.models.quantizer import dequantize
+    from vqvdb_tpu_torch.ops import quantize as q
+
+    n = idx_u8.shape[0]
+    cb = emb.to(torch.bfloat16)
+    got = q.fused_dequantize(idx_u8, cb)
+    err = (got.float() - dequantize(idx_u8, cb).float()).abs().max().item()
+    if not torch.equal(got, dequantize(idx_u8, cb)):
+        raise AssertionError(f"{name}: kernel rows differ from plain")
+    idx_i32 = idx_u8.to(torch.int32)
+    idx_i32[::9973] = emb.shape[0] + 44  # out of range -> zero rows
+    idx_i32[1::9973] = -1
+    for cbx in (cb, emb):
+        got = q.fused_dequantize(idx_i32, cbx)
+        if not torch.equal(got, dequantize(idx_i32, cbx)):
+            raise AssertionError(f"{name}: int32/{cbx.dtype} differs from plain")
+        if got[::9973].any() or got[1::9973].any():
+            raise AssertionError(f"{name}: out-of-range rows are not zero")
+    d = cb.shape[1]
+    nbytes = n * 1 + cb.numel() * 2 + n * d * 2
+    idx_lib = idx_u8.to(torch.int32)
+    return dict(
+        name=name, route="cuda", source="vqvdb_tpu_torch/csrc/dequantize.cu",
+        replaces="vqvdb_tpu/ops/quantize.py:110",
+        max_abs_err=err,
+        ms=cuda_ms(lambda: q.fused_dequantize(idx_u8, cb), graph=True),
+        plain_ms=cuda_ms(lambda: dequantize(idx_u8, cb)),
+        bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=cuda_ms(lambda: cb.index_select(0, idx_lib)),
+        check=f"D={d} ({d * 2} B bf16 rows), bit-equal, u8 and int32 (out-of-range rows "
+              "zero), bf16 and f32")
+
+
+def nearest_row(name, z, emb):
+    """The nearest-code kernel on f32 latents z [N, D] against the codebook:
+    the argmin of plain f32 scores off near-ties, the f64 argmin, planted
+    non-finite rows; times with the codebook prepared once."""
+    import torch
+
+    from vqvdb_tpu_torch.models.quantizer import nearest_indices, nearest_scores
+    from vqvdb_tpu_torch.ops import quantize as q
+
+    scores = nearest_scores(z, emb)
+    got = q.fused_nearest_indices(z, emb)
+    mis, ties, regret = index_check(name, got, scores)
+    e64 = emb.double()
+    missed, plain_missed = terms_check(
+        name, got, scores, (e64 * e64).sum(1)[None, :] - 2.0 * (z.double() @ e64.T))
+    planted = non_finite_check(name, z, lambda x: q.fused_nearest_indices(x, emb),
+                               lambda x: nearest_indices(x, emb))
+    esq = (emb * emb).sum(1)
+    mt = -2.0 * emb.T
+    prep = q.prepare_codebook(emb)
+    return dict(
+        name=name, route="cuda", source="vqvdb_tpu_torch/csrc/score_argmin_tc.cu",
+        replaces="vqvdb_tpu/ops/quantize.py:41",
+        max_abs_err=regret, mismatches=mis,
+        ms=cuda_ms(lambda: q.fused_nearest_indices(z, prep), graph=True),
+        plain_ms=cuda_ms(lambda: nearest_indices(z, emb)),
+        **score_bound(z.shape[0], z.shape[1], emb.shape[0], 4, products=6),
+        library_ms=cuda_ms(lambda: torch.addmm(esq, z, mt).argmin(1)),
+        check=f"D={z.shape[1]} f32: {mis} mismatches / {ties} near-tie rows, max regret "
+              f"{regret:.3g}, off the f64 argmin {missed} (plain f32: {plain_missed}); "
+              f"{planted} non-finite rows equal plain")
 
 
 def log_kernel_rows(rows):
@@ -1027,6 +1068,278 @@ def large_codebook_phase(tree, cfg, grid, seed: int, workdir: Path):
     return res, row
 
 
+def derived_model(seed: int, width: int, dim: int, k: int = 256):
+    """A model of the flagship's graph (packed scalar encoder, scalar
+    decoder) at encoder width `width` and latent depth `dim`, its weights
+    drawn with numpy from `seed` (He-scaled convs, GroupNorm at identity, a
+    Gaussian codebook): it takes the kernels to feature and latent depths
+    that no shipped model has."""
+    import dataclasses
+
+    import numpy as np
+
+    from vqvdb_tpu_torch.core.config import ModelConfig
+
+    rng = np.random.default_rng(seed)
+
+    def conv(kk, cin, cout):
+        w = rng.standard_normal((kk, kk, kk, cin, cout)) * np.sqrt(2.0 / (kk ** 3 * cin))
+        return {"w": w.astype(np.float32), "b": np.zeros(cout, np.float32)}
+
+    def gn(ch):
+        return {"scale": np.ones(ch, np.float32), "bias": np.zeros(ch, np.float32)}
+
+    def rb(ch):
+        return {"conv1": conv(3, ch, ch), "conv2": conv(3, ch, ch), "gn1": gn(ch), "gn2": gn(ch)}
+
+    def attn(ch):
+        hid = max(ch // 4, 1)
+        return {"fc1": {"w": (rng.standard_normal((ch, hid)) / np.sqrt(ch)).astype(np.float32)},
+                "fc2": {"w": (rng.standard_normal((hid, ch)) / np.sqrt(hid)).astype(np.float32)}}
+
+    proj = conv(1, width, dim)
+    proj["w"] *= np.float32(np.sqrt(0.5))
+    codebook = rng.standard_normal((k, dim)).astype(np.float32)
+    tree = {
+        "encoder": {"stem_conv": conv(3, 8, width), "stem_gn": gn(width), "rb": rb(width),
+                    "attn": attn(width), "proj": proj},
+        "decoder": {"stem_conv": conv(3, dim, 64), "stem_gn": gn(64), "rb": rb(64),
+                    "attn": attn(64), "up_conv": conv(3, 64, 256), "final": conv(3, 32, 1)},
+        "vq": {"embedding": codebook, "cluster_size": np.zeros(k, np.float32),
+               "embed_avg": codebook.copy()},
+    }
+    cfg = dataclasses.replace(ModelConfig(), embedding_dim=dim, num_embeddings=k,
+                              encoder_arch="packed")
+    return tree, cfg
+
+
+def deep_rows_phase(seed: int, grid, workdir: Path):
+    """Phase 13: the kernels at depths and row widths that no shipped model
+    reaches, each on a path of a derived model (`derived_model`), counters
+    reset just before the path and read just after:
+      deep160 (encoder width 160, latent depth 160, f32): compress, the
+        score kernel on f32 rows of depth 160 (streamed depth); unfused,
+        the nearest-code kernel at D = 160 (streamed depth);
+      wide1024 (encoder width 1024, bf16): compress, the score kernel on
+        bf16 rows of depth 1024 (streamed depth);
+      d20 (latent depth 20, bf16): decompress, the dequantize kernel on
+        40-byte bf16 codebook rows (8-byte vectors).
+    Then each kernel against its plain version on the path's own inputs."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.models.vqvae import encoder_apply
+    from vqvdb_tpu_torch.ops import quantize as q
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+
+    data = grid_subset(grid, 2 * 4096 + 123)
+    res, codecs = {}, {}
+    for label, width, dim, opts, leaves, kernel in (
+            ("deep160", 160, 160, dict(compute_dtype="float32"), data, "score_argmin"),
+            ("deep160_unfused", 160, 160,
+             dict(compute_dtype="float32", fuse_proj_quantize=False), data, "nearest_indices"),
+            ("wide1024", 1024, 128, {}, grid_subset(grid, 4096), "score_argmin"),
+            ("d20", 64, 20, {}, data, "score_argmin")):
+        tree, cfg = derived_model(seed + width + dim, width, dim)
+        codec = VQCodec(tree, cfg, CodecConfig(**opts), device="cuda")
+        batches = -(-leaves.num_leaves // codec.ccfg.batch_size)
+        want = {kernel: batches}
+        path = workdir / f"{label}.vqvdb"
+        codec.compress(grid_subset(leaves, 64), path)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        stats = codec.compress(leaves, path)
+        enc = read_launches()
+        expect_launches(f"{label} compress", enc, **want)
+        reset_launches()
+        out, dstats = codec.decompress(path)
+        dec = read_launches()
+        expect_launches(f"{label} decompress", dec, dequantize=batches)
+        if (out[0].leaves.shape != leaves.leaves.shape or not np.isfinite(out[0].leaves).all()
+                or not np.array_equal(out[0].origins, leaves.origins)):
+            raise AssertionError(f"{label}: decoded leaves or origins are not the input's")
+        res[label] = {"width": width, "dim": dim, "leaves": leaves.num_leaves,
+                      "compress_leaves_per_s": stats["leaves_per_sec"],
+                      "decompress_leaves_per_s": dstats["leaves_per_sec"],
+                      "seconds": time.perf_counter() - t0,
+                      "encode_launches": enc, "decode_launches": dec}
+        codecs[label] = codec
+    rows = []
+    with torch.inference_mode():
+        x = torch.from_numpy(grid.leaves[:4096]).cuda()
+        for name, label in (("score_argmin_f32_d160", "deep160"),
+                            ("score_argmin_bf16_d1024", "wide1024")):
+            codec = codecs[label]
+            h_f32 = codec._features(x)
+            h_bf16 = codec._features(x.to(torch.bfloat16))
+            f = h_f32.shape[-1]
+            rows.append(score_argmin_row(
+                name, h_f32.reshape(-1, f), h_bf16.reshape(-1, f), *codec._score_mc,
+                timed=h_f32.reshape(-1, f) if label == "deep160" else None))
+        codec = codecs["deep160_unfused"]
+        z = encoder_apply(codec.params["encoder"], x, codec.mcfg).reshape(-1, 160).float()
+        rows.append(nearest_row("nearest_d160", z, codec.params["vq"]["embedding"]))
+        codec = codecs["d20"]
+        idx = codec._encode_step(x).reshape(-1)
+        rows.append(dequantize_row("dequantize_bf16_d20", idx, codec.params["vq"]["embedding"]))
+    plans = {name: q.score_plan(depth, 256, size).mode for name, depth, size in
+             (("f32_d160", 160, 4), ("bf16_d1024", 1024, 2), ("nearest_d160", 160, 4))}
+    res["score_plans"] = plans
+    if set(plans.values()) != {"streamed"}:
+        raise AssertionError(f"deep rows did not take the streamed-depth mode: {plans}")
+    return res, rows
+
+
+def _cli(argv):
+    """vqvdb_tpu_torch.cli.main(argv) -> (exit code, its last JSON line)."""
+    import contextlib
+    import io
+
+    from vqvdb_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main([str(a) for a in argv])
+    lines = buf.getvalue().strip().splitlines()
+    return rc, (json.loads(lines[-1]) if lines else None)
+
+
+def _by_origin(grid):
+    """(origins, leaves) in lexicographic origin order."""
+    import numpy as np
+
+    order = np.lexsort(grid.origins.T[::-1])
+    return grid.origins[order], grid.leaves[order]
+
+
+def user_path(codec, grid, workdir: Path):
+    """Phase 12: the user's file path at full width on the flagship:
+    .vdb -> CLI encode (and --streaming) -> .vqvdb -> CLI decode -> .vdb;
+    dense decode on the device of a v3 and a v6-int8 file; encode from the
+    dense device tensor. Counters reset around each dense path; rates of the
+    dense and the sparse paths in turns."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.format.verify import verify_roundtrip
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid, psnr
+    from vqvdb_tpu_torch.vdb.openvdb_io import read_vdb_leafgrids, write_vdb_leafgrids
+
+    model = REPO / "models" / "scalar.vqmodel"
+    out = {"leaves": grid.num_leaves}
+    vdb = workdir / "scene.vdb"
+    t0 = time.perf_counter()
+    write_vdb_leafgrids(vdb, [grid])
+    t1 = time.perf_counter()
+    (from_vdb,) = read_vdb_leafgrids(vdb)
+    out["vdb_write_s"], out["vdb_read_s"] = t1 - t0, time.perf_counter() - t1
+    out["vdb_bytes"] = vdb.stat().st_size
+    # 1-3: CLI encode, plain and streamed, against compress of what the .vdb holds
+    ref = workdir / "ref.vqvdb"
+    codec.compress(from_vdb, ref)
+    for label, extra in (("cli_encode", []), ("cli_encode_streaming", ["--streaming"])):
+        path = workdir / f"{label}.vqvdb"
+        t0 = time.perf_counter()
+        rc, stats = _cli(["encode", vdb, path, "--model", model, *extra])
+        wall = time.perf_counter() - t0
+        if rc != 0 or path.read_bytes() != ref.read_bytes():
+            raise AssertionError(f"{label}: exit {rc}, file equal to compress: "
+                                 f"{rc == 0 and path.read_bytes() == ref.read_bytes()}")
+        out[label] = {"leaves_per_s": stats["leaves_per_sec"], "wall_s": wall,
+                      "host_seconds": stats["host_seconds"], "byte_identical": True}
+    # 4: CLI decode to .vdb, read back
+    recon_vdb = workdir / "recon.vdb"
+    t0 = time.perf_counter()
+    rc, stats = _cli(["decode", ref, recon_vdb, "--model", model])
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"cli decode: exit {rc}")
+    (recon,) = read_vdb_leafgrids(recon_vdb)
+    sparse, _ = codec.decompress(ref)
+    ro, rl = _by_origin(recon)
+    so, sl = _by_origin(sparse[0])
+    go, gl = _by_origin(grid)
+    if not (np.array_equal(ro, so) and np.array_equal(rl, sl) and np.array_equal(ro, go)):
+        raise AssertionError("cli decode: the .vdb differs from decompress")
+    quality = psnr(rl, gl)
+    if not quality > MIN_PSNR_DB:
+        raise AssertionError(f"cli decode: PSNR {quality:.2f} dB <= {MIN_PSNR_DB}")
+    out["cli_decode"] = {"leaves_per_s": stats["leaves_per_sec"], "wall_s": wall,
+                         "host_seconds": stats["host_seconds"], "psnr_db": quality,
+                         "equal_to_decompress": True}
+    # 5: dense decode of the v3 file and of a v6-int8 file
+    v6 = workdir / "v6.vqvdb"
+    codec.compress(grid, v6, residual="int8")
+    batches = -(-grid.num_leaves // codec.ccfg.batch_size)
+    checks = {}
+    for label, path in (("v3", ref), ("v6_int8", v6)):
+        reset_launches()
+        (res,) = api.decode_dense(path, codec)
+        torch.cuda.synchronize()
+        expect_launches(f"dense decode {label}", read_launches(), dequantize=batches)
+        dense = res["dense"]
+        if not dense.is_cuda:
+            raise AssertionError(f"dense decode {label}: result on {dense.device}")
+        host, host_lo = codec.decompress(path)[0][0].to_dense()
+        got = dense.cpu().numpy()
+        if not (np.array_equal(got, host) and np.array_equal(res["lo"], host_lo)):
+            raise AssertionError(f"dense decode {label}: differs from decompress + to_dense")
+        checks[label] = {"shape": list(dense.shape), "bit_equal_to_sparse": True}
+        if label == "v6_int8":
+            report = verify_roundtrip(path, codec, [grid])
+            bound = report["grids"][0]["residual_bound"]
+            src, _ = grid.to_dense()
+            err = float(np.abs(got - src).max())
+            if not (report["ok"] and report["grids"][0]["bound_ok"] and err <= bound):
+                raise AssertionError(f"dense v6 int8: max error {err} against bound {bound}")
+            checks[label].update(max_abs_err=err, bound=bound, bound_ok=True)
+        else:
+            v3_dense, lo = dense, res["lo"]
+    del dense, res
+    # 6: encode from the dense tensor on the card
+    from_dense = LeafGrid.from_dense("density", v3_dense.cpu().numpy(), origin=lo)
+    want = workdir / "from_dense.vqvdb"
+    codec.compress(from_dense, want)
+    got = workdir / "encode_dense.vqvdb"
+    reset_launches()
+    stats = api.encode_dense(v3_dense, codec, got, origin=lo)
+    expect_launches("dense encode", read_launches(),
+                    score_argmin=-(-from_dense.num_leaves // codec.ccfg.batch_size))
+    if got.read_bytes() != want.read_bytes():
+        raise AssertionError("encode_dense differs from compress(LeafGrid.from_dense)")
+    checks["encode_dense"] = {"leaves": stats["leaves"], "byte_identical": True}
+    out["checks"] = checks
+    # 8: rates in turns on this card: sparse, dense, dense, sparse
+    n, m = grid.num_leaves, from_dense.num_leaves
+    rates = {k: [] for k in ("decompress", "decompress_to_dense", "dense_decode",
+                             "compress", "encode_dense")}
+    for turn in ("sparse", "dense", "dense", "sparse"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if turn == "sparse":
+            grids, _ = codec.decompress(ref)
+            t1 = time.perf_counter()
+            grids[0].to_dense()
+            rates["decompress"].append(n / (t1 - t0))
+            rates["decompress_to_dense"].append(n / (time.perf_counter() - t0))
+            t0 = time.perf_counter()
+            codec.compress(from_dense, want)
+            rates["compress"].append(m / (time.perf_counter() - t0))
+        else:
+            (res,) = api.decode_dense(ref, codec)
+            torch.cuda.synchronize()
+            rates["dense_decode"].append(n / (time.perf_counter() - t0))
+            del res
+            t0 = time.perf_counter()
+            api.encode_dense(v3_dense, codec, got, origin=lo)
+            rates["encode_dense"].append(m / (time.perf_counter() - t0))
+    out["leaves_per_s_in_turns"] = rates
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1099,12 +1412,18 @@ def main() -> int:
         unf = unfused_path(tree, cfg, grid_subset(grid, 16384 + 777), workdir)
         log(f"[unfused] {json.dumps(unf)}")
     par = {}
-    for label, (t, c) in (("scalar", (tree, cfg)), ("scalar_reference", (ref_tree, ref_cfg)),
-                          ("scalar_rvq2", side["scalar_rvq2"][:2])):
-        par[label] = parity_phase(label, t, c, grid)
+    for label, model, data in (("scalar", (tree, cfg), grid),
+                               ("scalar_reference", (ref_tree, ref_cfg), grid),
+                               ("scalar_rvq2", side["scalar_rvq2"][:2], grid),
+                               ("scalar_packed_lite", None, grid),
+                               ("vec3", side["vec3"][:2], vgrid),
+                               ("vec3_rvq2", None, vgrid)):
+        model = model or load_model(REPO / "models" / f"{label}.vqmodel")
+        par[label] = parity_phase(label, *model, data)
         log(f"[parity] {json.dumps(par[label])}")
-    expect_launches("scalar_rvq2 f32 encode", par["scalar_rvq2"]["launches"],
-                    nearest_indices=2, dequantize=2)
+    for label in ("scalar_rvq2", "vec3_rvq2"):
+        expect_launches(f"{label} f32 encode", par[label]["launches"],
+                        nearest_indices=2, dequantize=2)
 
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
@@ -1116,6 +1435,13 @@ def main() -> int:
         big_res, big_row = large_codebook_phase(tree, cfg, grid, args.seed, workdir)
         log(f"[k4096] {json.dumps(big_res)}")
         kernels += log_kernel_rows([big_row])
+    with tempfile.TemporaryDirectory() as tmp:
+        user = user_path(codec, grid, Path(tmp))
+        log(f"[user] {json.dumps(user)}")
+    with tempfile.TemporaryDirectory() as tmp:
+        deep_res, deep_rows = deep_rows_phase(args.seed, grid, Path(tmp))
+        log(f"[deep] {json.dumps(deep_res)}")
+        kernels += log_kernel_rows(deep_rows)
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
@@ -1128,6 +1454,10 @@ def main() -> int:
     launches["score_argmin_width32"] = ref_res["encode_launches"]["score_argmin"]
     launches["score_argmin_width128"] = side_res["vec3"]["encode_launches"]["score_argmin"]
     launches["score_argmin_k4096"] = big_res["encode_launches"]["score_argmin"]
+    launches["score_argmin_f32_d160"] = deep_res["deep160"]["encode_launches"]["score_argmin"]
+    launches["nearest_d160"] = deep_res["deep160_unfused"]["encode_launches"]["nearest_indices"]
+    launches["score_argmin_bf16_d1024"] = deep_res["wide1024"]["encode_launches"]["score_argmin"]
+    launches["dequantize_bf16_d20"] = deep_res["d20"]["decode_launches"]["dequantize"]
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

@@ -198,9 +198,9 @@ def test_card_wrappers_raise_instead_of_falling_back(rng):
     with pytest.raises(ValueError):  # rows of another depth than M
         q.fused_score_argmin(torch.zeros(8, 32, device=dev), torch.zeros(64, 64, device=dev),
                              torch.zeros(1, 64, device=dev))
-    with pytest.raises(ValueError):  # f32 rows too deep for the block's shared memory
-        q.fused_score_argmin(torch.zeros(8, 512, device=dev), torch.zeros(512, 256, device=dev),
-                             torch.zeros(1, 256, device=dev))
+    with pytest.raises(ValueError):  # rows that are not 16-byte aligned
+        q.fused_score_argmin(torch.zeros(8 * 64 + 1, device=dev)[1:].view(8, 64),
+                             torch.zeros(64, 256, device=dev), torch.zeros(1, 256, device=dev))
     assert q.fused_score_argmin(h[:0], torch.zeros(64, 64, device=dev),
                                 torch.zeros(1, 64, device=dev)).shape == (0,)
 
@@ -381,3 +381,98 @@ def test_card_fused_rb_raises_instead_of_falling_back(rng):
         residual_block_fused(_rb_params(rng, torch.device("cpu")), x)
     with pytest.raises(ValueError):  # groups must divide 16
         residual_block_fused(p, x, groups=3)
+
+
+# ---------------------------------------------------------------------------
+# Rows of any depth (the streamed-depth mode) and rows of any byte width
+# ---------------------------------------------------------------------------
+
+DEEP_SHAPES = [(160, torch.float32), (512, torch.float32), (1024, torch.float32),
+               (320, torch.bfloat16), (1024, torch.bfloat16)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [256, 4096])
+@pytest.mark.parametrize("f,dtype", DEEP_SHAPES)
+def test_card_score_argmin_deep_rows(rng, f, dtype, k):
+    """Rows deeper than two full-depth stages fit take the streamed-depth
+    mode: small integers (every sum exact) with two identical winning codes
+    and ragged row counts equal the plain version; real values equal the
+    f64 argmin off near-ties; NaN / +-inf rows equal the plain version."""
+    dev = _card()
+    plan = q.score_plan(f + (-f) % 32, q.code_tiles(k)[0], torch.finfo(dtype).bits // 8)
+    assert plan.mode == "streamed"
+    for n in (1, 127, 3001):
+        h = torch.from_numpy(rng.integers(-3, 4, size=(n, f)).astype(np.float32))
+        m = torch.from_numpy(rng.integers(-3, 4, size=(f, k)).astype(np.float32))
+        c = torch.from_numpy(rng.integers(-40, 40, size=(1, k)).astype(np.float32))
+        m[:, k - 3] = m[:, 9]
+        c[0, 9] = c[0, k - 3] = -1e6
+        h, m, c = h.to(dev, dtype), m.to(dev), c.to(dev)
+        launches = q.fused_score_argmin.launches
+        got = q.fused_score_argmin(h, m, c)
+        torch.cuda.synchronize()
+        assert q.fused_score_argmin.launches == launches + q.code_tiles(k)[1]
+        assert (got == 9).all()
+        c[0, 9] = c[0, k - 3] = 0.0
+        assert torch.equal(q.fused_score_argmin(h, m, c), q.score_argmin_plain(h, m, c))
+    n = 20011
+    x = _rand(rng, n, f)
+    x[0::7, 3] = np.nan
+    x[1::7, f - 5] = np.inf
+    x[2::7, 1] = -np.inf
+    x[3::7, 0] = np.inf
+    x[3::7, f - 2] = -np.inf
+    h = torch.from_numpy(x).to(dev, dtype)
+    m = torch.from_numpy(_rand(rng, f, k)).to(dev)
+    c = torch.from_numpy(_rand(rng, 1, k)).to(dev)
+    got = q.fused_score_argmin(h, m, c)
+    special = torch.arange(n, device=dev) % 7 < 4
+    assert torch.equal(got[special], q.score_argmin_plain(h, m, c)[special])
+    assert (got[0::7] == 0).all()
+    _assert_argmin_off_near_ties(got[~special],
+                                 h[~special].double() @ m.double() + c.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,k", [(160, 256), (512, 256), (1024, 256), (160, 4096)])
+def test_card_nearest_deep_rows(rng, d, k):
+    dev = _card()
+    n = 5003
+    cb = torch.from_numpy(rng.integers(-2, 3, size=(k, d)).astype(np.float32)).to(dev)
+    cb[k - 1] = cb[3]
+    z = torch.from_numpy(rng.integers(-2, 3, size=(n, d)).astype(np.float32)).to(dev)
+    z[0] = cb[3]
+    z[1, d - 1] = float("inf")
+    z[2, 7] = float("nan")
+    got = q.fused_nearest_indices(z, cb)
+    assert torch.equal(got.long(), nearest_indices(z, cb))
+    assert got[0] == 3 and got[2] == 0
+    e = torch.from_numpy(_rand(rng, k, d)).to(dev)
+    zr = torch.from_numpy(_rand(rng, n, d)).to(dev)
+    e64 = e.double()
+    _assert_argmin_off_near_ties(q.fused_nearest_indices(zr, e),
+                                 (e64 * e64).sum(1)[None, :] - 2.0 * (zr.double() @ e64.T))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(20, torch.bfloat16), (21, torch.bfloat16),
+                                     (5, torch.float32), (128, torch.bfloat16)])
+@pytest.mark.parametrize("idx_dtype", [torch.uint8, torch.int32])
+def test_card_dequantize_any_row_width(rng, d, dtype, idx_dtype):
+    """Rows of 40, 42, 20 and 256 bytes (vectors of 8, 2, 4 and 16 bytes a
+    thread): bit-equal to index_select, out-of-range indices give zero rows;
+    a codebook view that starts off a 16-byte boundary too."""
+    dev = _card()
+    k, n = 256, 100003
+    cb = torch.from_numpy(_rand(rng, k, d)).to(dev, dtype)
+    idx = torch.from_numpy(rng.integers(0, k, size=n).astype(np.int64))
+    want = cb.index_select(0, idx.to(dev))
+    if idx_dtype == torch.int32:
+        idx[[0, n - 1]] = 300
+        want[[0, n - 1]] = 0
+    got = q.fused_dequantize(idx.to(dev, idx_dtype), cb)
+    assert torch.equal(got, want)
+    shifted = torch.empty(k * d + 1, dtype=dtype, device=dev)[1:].view(k, d)
+    shifted.copy_(cb)
+    assert torch.equal(q.fused_dequantize(idx.to(dev, idx_dtype), shifted), want)

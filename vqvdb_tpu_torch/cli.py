@@ -1,0 +1,549 @@
+"""Command-line interface (counterpart of `vqvdb_tpu/cli.py`, inference
+half): encode / decode / info / verify / transcode / sequences / OpenVDB
+tools / bench.
+
+    python -m vqvdb_tpu_torch.cli encode scene.vdb scene.vqvdb --model m.vqmodel
+    python -m vqvdb_tpu_torch.cli decode scene.vqvdb recon.vdb --model m.vqmodel
+    python -m vqvdb_tpu_torch.cli info scene.vqvdb
+    python -m vqvdb_tpu_torch.cli bench --model models/scalar.vqmodel
+
+Every subcommand that runs a model takes `--device` (default `cuda`; `cpu`
+runs the kernels' plain versions). Output is one JSON object, with the JAX
+CLI's keys and, where the codec reports it, `host_seconds`. Exit codes are
+the JAX CLI's: 0 done, 1 a file or model error, 2 a usage error, 130 an
+encode stopped by ^C. Not ported yet, exiting 2 with the ROADMAP.md item
+that brings them: train and datagen (item 12), eval (item 11), serve and
+the import / export commands (item 14), --data-parallel (item 13).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+from vqvdb_tpu_torch.utils.errors import VqvdbError
+
+REPO_MODELS = Path(__file__).resolve().parent.parent / "models"
+
+NOT_PORTED = {
+    "train": "Queue 1 item 12 (training)",
+    "datagen": "Queue 1 item 12 (training)",
+    "eval": "Queue 1 item 11 (eval)",
+    "serve": "Queue 1 item 14 (serving)",
+    "import-torch": "Queue 1 item 14 (interop)",
+    "export-checkpoint": "Queue 1 item 14 (interop)",
+    "export-torch": "Queue 1 item 14 (interop)",
+    "export-onnx": "Queue 1 item 14 (interop)",
+}
+
+
+def _error(msg: str) -> int:
+    print(f"error: {msg}", file=sys.stderr)
+    return 2
+
+
+def _rounded(stats: dict, digits: int = 2) -> dict:
+    return {k: round(v, digits) if isinstance(v, float) else v for k, v in stats.items()}
+
+
+def _make_codec(args):
+    from vqvdb_tpu_torch import api
+
+    return api.make_codec(args.model, batch_size=args.batch_size,
+                          compute_dtype=args.compute_dtype, device=args.device)
+
+
+def _load_one_grid(f: Path):
+    """An npy file as a LeafGrid: a leaf array ([N,8,8,8] or [N,8,8,8,C])
+    with its sidecars, or else a dense volume ([X,Y,Z] or [X,Y,Z,C]),
+    sparsified."""
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    arr = np.load(f, mmap_mode="r")
+    if arr.ndim >= 4 and arr.shape[1:4] == (8, 8, 8):
+        return LeafGrid.load_npy(f)
+    return LeafGrid.from_dense(f.stem, np.asarray(arr))
+
+
+def _load_vdb(path: Path):
+    from vqvdb_tpu_torch.vdb.openvdb_io import read_vdb_leafgrids
+
+    grids = read_vdb_leafgrids(path)
+    for g in grids:
+        dropped = getattr(g, "dropped_tiles", 0)
+        if dropped:
+            print(f"warning: grid '{g.name}': {dropped} active constant tile(s) larger "
+                  "than a leaf were dropped (the VQ codec compresses 8^3 leaves only)",
+                  file=sys.stderr)
+    return grids
+
+
+def _load_grids(path: Path, grid_name):
+    if path.is_dir():
+        grids = [_load_one_grid(f) for f in sorted(path.glob("*.npy"))
+                 if not f.name.endswith("_origins.npy")]
+        for f in sorted(path.glob("*.vdb")):
+            grids.extend(_load_vdb(f))
+    elif path.suffix == ".vdb":
+        grids = _load_vdb(path)
+    else:
+        grids = [_load_one_grid(path)]
+    if grid_name:
+        grids = [g for g in grids if g.name == grid_name]
+    return grids
+
+
+class _GracefulInterrupt:
+    """SIGINT -> graceful encode abort: the first ^C asks the codec to stop
+    between batches (what was encoded is kept and the file is finalized
+    valid, VqvdbWriter.abort_grid); a second ^C raises KeyboardInterrupt."""
+
+    def __enter__(self):
+        import signal
+
+        self.stopped = False
+
+        def handler(signum, frame):
+            if self.stopped:
+                raise KeyboardInterrupt
+            self.stopped = True
+            print("interrupt: finishing current batch and finalizing the archive "
+                  "(^C again to kill)", file=sys.stderr)
+
+        self._prev = signal.signal(signal.SIGINT, handler)
+        return self
+
+    def __exit__(self, *exc):
+        import signal
+
+        # A handler installed from C reads as None, which signal.signal
+        # does not take back: leave the default in place.
+        signal.signal(signal.SIGINT, signal.SIG_DFL if self._prev is None else self._prev)
+
+    def __call__(self) -> bool:
+        return self.stopped
+
+
+def _cmd_encode(args) -> int:
+    from vqvdb_tpu_torch import api
+
+    codec = _make_codec(args)
+    opts = dict(progress=args.verbose, format_version=args.format_version,
+                compression=args.v5_codec, residual=args.residual,
+                residual_tol=args.residual_tol)
+    if args.streaming:
+        if Path(args.input).suffix != ".vdb":
+            return _error("--streaming requires a .vdb input")
+        from vqvdb_tpu_torch.vdb.openvdb_io import open_vdb_leaf_streams
+
+        streams = open_vdb_leaf_streams(args.input, names=args.grid or None)
+        if not streams:
+            return _error("no grids matched")
+        for s in streams:
+            if s.dropped_tiles:
+                print(f"warning: grid '{s.name}': {s.dropped_tiles} active constant "
+                      "tile(s) larger than a leaf were dropped", file=sys.stderr)
+        with _GracefulInterrupt() as stop:
+            stats = codec.compress_stream(streams, args.output, should_stop=stop, **opts)
+        print(json.dumps({"grids": len(streams), **_rounded(stats)}))
+        return 130 if stats["aborted"] else 0
+    grids = _load_grids(Path(args.input), args.grid)
+    if not grids:
+        return _error("no grids matched")
+    with _GracefulInterrupt() as stop:
+        stats = api.encode(grids, codec, args.output, should_stop=stop, **opts)
+    print(json.dumps({"grids": len(grids), **_rounded(stats)}))
+    return 130 if stats["aborted"] else 0
+
+
+def _cmd_decode(args) -> int:
+    from vqvdb_tpu_torch import api
+
+    codec = _make_codec(args)
+    bbox = None
+    if args.bbox:
+        v = [int(x) for x in args.bbox.split(",")]
+        if len(v) != 6:
+            return _error("--bbox wants x0,y0,z0,x1,y1,z1")
+        bbox = (v[:3], v[3:])
+    grids, stats = api.decode(args.input, codec, progress=args.verbose,
+                              grids=args.grid or None, bbox=bbox)
+    out_path = Path(args.output)
+    if args.vdb or out_path.suffix == ".vdb":
+        from vqvdb_tpu_torch.vdb.openvdb_io import write_vdb_leafgrids
+
+        out_path.parent.mkdir(parents=True, exist_ok=True)
+        write_vdb_leafgrids(out_path, grids)
+        print(json.dumps({"grids": [g.name for g in grids], "vdb": str(out_path),
+                          **_rounded(stats)}))
+        return 0
+    out_path.mkdir(parents=True, exist_ok=True)
+    for g in grids:
+        if args.dense:
+            dense, lo = g.to_dense()
+            np.save(out_path / f"{g.name}.dense.npy",
+                    dense[..., 0] if dense.shape[-1] == 1 else dense)
+            (out_path / f"{g.name}.origin.json").write_text(
+                json.dumps({"min_corner": lo.tolist()}))
+        else:
+            g.save_npy(out_path / f"{g.name}.npy")
+    print(json.dumps({"grids": [g.name for g in grids], **_rounded(stats)}))
+    return 0
+
+
+def _cmd_encode_seq(args) -> int:
+    from vqvdb_tpu_torch import api
+
+    files = sorted(Path(args.input_dir).glob(args.glob))
+    if not files:
+        return _error(f"no files match {args.glob} in {args.input_dir}")
+    frames = []
+    for f in files:
+        grids = _load_grids(f, args.grid)
+        if not grids:
+            return _error(f"no grids matched in {f}")
+        frames.append(grids)
+    codec = _make_codec(args)
+    stats = api.encode_sequence(frames, codec, args.output_dir, pattern=args.pattern,
+                                format_version=args.format_version,
+                                compression=args.v5_codec, residual=args.residual)
+    stats["inputs"] = [f.name for f in files]
+    print(json.dumps(_rounded(stats, 4)))
+    return 0
+
+
+def _cmd_decode_seq(args) -> int:
+    from vqvdb_tpu_torch import api
+
+    codec = _make_codec(args)
+    frames, stats = api.decode_sequence(args.input_dir, codec, pattern=args.pattern)
+    if not frames:
+        return _error(f"no files match {args.pattern} in {args.input_dir}")
+    out_dir = Path(args.output_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i, grids in enumerate(frames):
+        if args.vdb:
+            from vqvdb_tpu_torch.vdb.openvdb_io import write_vdb_leafgrids
+
+            write_vdb_leafgrids(out_dir / f"frame_{i:04d}.vdb", grids)
+        else:
+            frame_dir = out_dir / f"frame_{i:04d}"
+            frame_dir.mkdir(exist_ok=True)
+            for g in grids:
+                g.save_npy(frame_dir / f"{g.name}.npy")
+    print(json.dumps(_rounded(stats, 4)))
+    return 0
+
+
+def _cmd_vdbinfo(args) -> int:
+    from vqvdb_tpu_torch.vdb.openvdb_io import read_vdb_info
+
+    print(json.dumps(read_vdb_info(args.input), indent=2))
+    return 0
+
+
+def _cmd_transcode(args) -> int:
+    from vqvdb_tpu_torch.format.transcode import transcode
+
+    stats = transcode(args.input, args.output, version=args.format_version,
+                      compression=args.v5_codec, drop_residual=args.drop_residual,
+                      grids=args.grid or None)
+    print(json.dumps(stats))
+    return 0
+
+
+def _cmd_info(args) -> int:
+    from vqvdb_tpu_torch.format.vqvdb import RESIDUAL_MODE_NAMES, VqvdbReader
+
+    with VqvdbReader(args.input) as r:
+        out = {"version": r.version, "num_grids": r.num_grids,
+               "num_embeddings": r.num_embeddings,
+               "latent_dim_count": r.latent_dim_count, "grids": []}
+        while r.has_next_grid():
+            meta = r.next_grid_metadata()
+            entry = {"name": meta.name, "latent_shape": list(meta.latent_shape),
+                     "total_blocks": meta.total_blocks, "chunk_bytes": meta.chunk_size}
+            if meta.residual_mode:
+                entry["residual"] = RESIDUAL_MODE_NAMES[meta.residual_mode]
+                entry["residual_channels"] = meta.residual_channels
+            # the bytes on disk: total_blocks * chunk_bytes for v3/v4, the
+            # compressed frames for v5/v6
+            payload = r.skip_grid_payload()
+            entry["payload_bytes"] = payload
+            if r.grid_codec is not None:
+                entry["payload_codec"] = r.grid_codec
+                if payload:
+                    entry["frame_compression"] = round(
+                        meta.total_blocks * meta.chunk_size / payload, 3)
+            out["grids"].append(entry)
+    print(json.dumps(out, indent=2))
+    return 0
+
+
+def _cmd_verify(args) -> int:
+    from vqvdb_tpu_torch.format.verify import verify_container, verify_roundtrip
+
+    in_path = Path(args.input)
+    if in_path.is_dir():
+        if args.against is not None:
+            return _error("--against takes a single archive, not a directory")
+        frames = sorted(in_path.glob("*.vqvdb"))
+        if not frames:
+            return _error("no .vqvdb files in directory")
+        reports = [verify_container(f) for f in frames]
+        out = {"ok": all(r["ok"] for r in reports), "files": reports}
+    elif args.against is None:
+        out = verify_container(args.input)
+    else:
+        if args.model is None:
+            return _error("--against requires --model")
+        sources = _load_grids(Path(args.against), args.grid)
+        if not sources:
+            return _error("no source grids matched")
+        out = verify_roundtrip(args.input, _make_codec(args), sources)
+    print(json.dumps(out, indent=2))
+    return 0 if out["ok"] else 1
+
+
+def _bench_field(seed: int, n_leaves: int):
+    """A LeafGrid of up to `n_leaves` leaves of a seeded sum of Gaussian
+    blobs in [0, 1], sparsified at 0.02."""
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    rng = np.random.default_rng(seed)
+    side = 8 * max(4, int(np.ceil((4 * n_leaves) ** (1 / 3))))
+    shape = (side, side, side)
+    axes = [np.arange(s, dtype=np.float32) for s in shape]
+    dense = np.zeros(shape, np.float32)
+    for _ in range(12):
+        c = rng.uniform(0, side, 3)
+        s = rng.uniform(side / 16, side / 6)
+        g = [np.exp(-((a - ci) ** 2) / (2 * s * s)).astype(np.float32) for a, ci in zip(axes, c)]
+        dense += rng.uniform(0.3, 1.0) * g[0][:, None, None] * g[1][None, :, None] * g[2]
+    np.clip(dense, 0.0, 1.0, out=dense)
+    dense[dense < 0.02] = 0.0
+    full = LeafGrid.from_dense("density", dense)
+    n = min(n_leaves, full.num_leaves)
+    return LeafGrid("density", full.origins[:n], full.leaves[:n])
+
+
+def _cmd_bench(args) -> int:
+    """The port's own round trip: a seeded field -> v3 -> leaves, timed after
+    a warm-up, with PSNR and the host's share."""
+    import tempfile
+
+    from vqvdb_tpu_torch.vdb.grid import psnr
+
+    codec = _make_codec(args)
+    grid = _bench_field(args.seed, args.leaves)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "bench.vqvdb"
+        t0 = time.perf_counter()
+        codec.compress(grid, path)  # warm-up: kernel builds, allocations
+        codec.decompress(path)
+        warm = time.perf_counter() - t0
+        cstats = codec.compress(grid, path)
+        grids, dstats = codec.decompress(path)
+    device = str(codec.device)
+    if codec.device.type == "cuda":
+        import torch
+
+        device = torch.cuda.get_device_name(codec.device)
+    out = {"model": str(args.model), "device": device, "leaves": grid.num_leaves,
+           "batch_size": args.batch_size, "compute_dtype": args.compute_dtype,
+           "warmup_seconds": warm,
+           "compress_leaves_per_s": cstats["leaves_per_sec"],
+           "decompress_leaves_per_s": dstats["leaves_per_sec"],
+           "bytes": cstats["bytes"], "ratio": grid.leaves.nbytes / cstats["bytes"],
+           "psnr_db": psnr(grids[0].leaves, grid.leaves),
+           "host_seconds": {**cstats["host_seconds"], **dstats["host_seconds"]}}
+    print(json.dumps(_rounded(out, 4)))
+    return 0
+
+
+def _cmd_extract(args) -> int:
+    """.vdb assets -> the .npy leaf layout with origins sidecars, one file
+    per grid."""
+    from vqvdb_tpu_torch.vdb.openvdb_io import read_vdb_leafgrids
+
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    inputs = []
+    for item in args.inputs:
+        p = Path(item)
+        inputs.extend(sorted(p.glob("*.vdb")) if p.is_dir() else [p])
+    if not inputs:
+        return _error("no .vdb inputs")
+    written, total, used = [], 0, set()
+    for p in inputs:
+        for g in read_vdb_leafgrids(p):
+            if args.grid and g.name != args.grid:
+                continue
+            # Grid names may repeat within a file: never overwrite.
+            stem, k = f"{p.stem}_{g.name}", 2
+            while stem in used:
+                stem = f"{p.stem}_{g.name}_{k}"
+                k += 1
+            used.add(stem)
+            out = out_dir / f"{stem}.npy"
+            g.save_npy(out)
+            written.append(str(out))
+            total += int(g.leaves.shape[0])
+    print(json.dumps({"files": len(written), "leaves": total, "dir": str(out_dir)}))
+    return 0 if written else 2
+
+
+def _codec_options(p) -> None:
+    p.add_argument("--device", default="cuda",
+                   help="where the model runs: cuda (default) or cpu")
+    p.add_argument("--batch-size", type=int, default=4096)
+    p.add_argument("--compute-dtype", default="bfloat16")
+
+
+def _tier_options(p, *, tol: bool = True) -> None:
+    p.add_argument("--format-version", type=int, default=None, choices=[3, 4, 5, 6],
+                   help="container version: default 3 (4 for K > 256; 6 with "
+                        "--residual); 5 compresses the index frames")
+    p.add_argument("--v5-codec", default="zlib", choices=["zlib", "lzma", "lz4"],
+                   help="frame codec of v5/v6 files")
+    p.add_argument("--residual", default=None, choices=["int8", "f16"],
+                   help="the v6 near-lossless tier: store a per-leaf correction")
+    if tol:
+        p.add_argument("--residual-tol", type=float, default=None,
+                       help="int8 tier: floor of the quantization step at 2 x tol")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(prog="vqvdb_tpu_torch",
+                                description="VQ-VAE volume codec on PyTorch / CUDA")
+    sub = p.add_subparsers(dest="command", required=True)
+
+    pe = sub.add_parser("encode", help="Compress grids to a .vqvdb file.")
+    pe.add_argument("input", help=".vdb / .npy leaf file, or a directory of them")
+    pe.add_argument("output", help="output .vqvdb path")
+    pe.add_argument("--model", required=True, help=".vqmodel artifact")
+    pe.add_argument("--grid", default=None, help="grid name filter")
+    _codec_options(pe)
+    pe.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pe.add_argument("--streaming", action="store_true",
+                    help="read a .vdb input lazily, O(batch) leaves in host memory; "
+                         "the file is byte-identical to the default path's")
+    _tier_options(pe)
+    pe.add_argument("-v", "--verbose", action="store_true")
+    pe.set_defaults(func=_cmd_encode)
+
+    pd = sub.add_parser("decode", help="Decompress a .vqvdb file.")
+    pd.add_argument("input", help=".vqvdb path")
+    pd.add_argument("output", help="output directory for .npy grids, or a .vdb path")
+    pd.add_argument("--model", required=True)
+    _codec_options(pd)
+    pd.add_argument("--grid", action="append", default=[],
+                    help="decode only this grid (repeatable)")
+    pd.add_argument("--bbox", help="voxel-space selection x0,y0,z0,x1,y1,z1 "
+                                   "(lower inclusive, upper exclusive)")
+    pd.add_argument("--dense", action="store_true",
+                    help="write dense volumes over each grid's bounding box")
+    pd.add_argument("--vdb", action="store_true",
+                    help="write one OpenVDB .vdb file with all grids")
+    pd.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pd.add_argument("-v", "--verbose", action="store_true")
+    pd.set_defaults(func=_cmd_decode)
+
+    pi = sub.add_parser("info", help="Inspect a .vqvdb file.")
+    pi.add_argument("input")
+    pi.set_defaults(func=_cmd_info)
+
+    pt = sub.add_parser("transcode", help="Rewrite a .vqvdb container without a model.")
+    pt.add_argument("input")
+    pt.add_argument("output")
+    pt.add_argument("--format-version", type=int, default=None, choices=[3, 4, 5, 6],
+                    help="target version (default: the source's)")
+    pt.add_argument("--v5-codec", default="zlib", choices=["zlib", "lzma", "lz4"])
+    pt.add_argument("--drop-residual", action="store_true",
+                    help="confirm discarding a v6 residual stream")
+    pt.add_argument("--grid", action="append", default=[],
+                    help="keep only this grid (repeatable)")
+    pt.set_defaults(func=_cmd_transcode)
+
+    pes = sub.add_parser("encode-seq", help="Encode a sequence, one .vqvdb per frame.")
+    pes.add_argument("input_dir")
+    pes.add_argument("output_dir")
+    pes.add_argument("--model", required=True)
+    pes.add_argument("--glob", default="*.vdb", help="frame file pattern (*.vdb or *.npy)")
+    pes.add_argument("--grid", default=None)
+    pes.add_argument("--pattern", default="frame_{:04d}.vqvdb")
+    _codec_options(pes)
+    pes.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    _tier_options(pes, tol=False)
+    pes.set_defaults(func=_cmd_encode_seq)
+
+    pds = sub.add_parser("decode-seq", help="Decode a directory of per-frame .vqvdb files.")
+    pds.add_argument("input_dir")
+    pds.add_argument("output_dir")
+    pds.add_argument("--model", required=True)
+    pds.add_argument("--pattern", default="frame_*.vqvdb")
+    pds.add_argument("--vdb", action="store_true", help="one .vdb per frame")
+    _codec_options(pds)
+    pds.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pds.set_defaults(func=_cmd_decode_seq)
+
+    pvi = sub.add_parser("vdbinfo", help="Inspect an OpenVDB .vdb file.")
+    pvi.add_argument("input")
+    pvi.set_defaults(func=_cmd_vdbinfo)
+
+    pvf = sub.add_parser("verify", help="Verify a .vqvdb archive; with --against, its "
+                                        "round trip against the source (exit 1 on a "
+                                        "failed check).")
+    pvf.add_argument("input", help=".vqvdb archive or a directory of them")
+    pvf.add_argument("--against", default=None, help="source npy / .vdb file or directory")
+    pvf.add_argument("--model", default=None, help="model artifact (with --against)")
+    pvf.add_argument("--grid", default=None)
+    _codec_options(pvf)
+    pvf.set_defaults(func=_cmd_verify)
+
+    pb = sub.add_parser("bench", help="Time the port's round trip on a seeded field.")
+    pb.add_argument("--model", default=str(REPO_MODELS / "scalar.vqmodel"))
+    pb.add_argument("--leaves", type=int, default=16384)
+    pb.add_argument("--seed", type=int, default=0)
+    _codec_options(pb)
+    pb.set_defaults(func=_cmd_bench)
+
+    pxv = sub.add_parser("extract", help="Extract .vdb leaves into npy files.")
+    pxv.add_argument("inputs", nargs="+", help=".vdb files or directories")
+    pxv.add_argument("out_dir")
+    pxv.add_argument("--grid", default=None)
+    pxv.set_defaults(func=_cmd_extract)
+
+    for name, item in NOT_PORTED.items():
+        sub.add_parser(name, help=f"not ported yet (ROADMAP.md {item})")
+    return p
+
+
+def main(argv=None) -> int:
+    p = build_parser()
+    args, extra = p.parse_known_args(argv)
+    if args.command in NOT_PORTED:
+        return _error(f"'{args.command}' is not ported to vqvdb_tpu_torch yet "
+                      f"(ROADMAP.md {NOT_PORTED[args.command]})")
+    if extra:
+        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    try:
+        if getattr(args, "data_parallel", False):
+            return _error("--data-parallel is not ported yet (ROADMAP.md Queue 1 item 13)")
+        return args.func(args)
+    except BrokenPipeError:
+        return 0
+    except (VqvdbError, OSError) as e:
+        # Malformed containers, model mismatches and bad artifacts are the
+        # user's to fix, not crashes.
+        print(f"error: {e}", file=sys.stderr)
+        return 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

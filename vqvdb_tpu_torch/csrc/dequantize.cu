@@ -12,9 +12,11 @@
 // once (64 KB bf16 / 128 KB f32) and writes 67 MB (bf16) of rows: about
 // 20 us at 3.35 TB/s. No arithmetic to speak of.
 //
-// Simple design: the kernel is dtype-blind (a row is row_bytes bytes, a
-// multiple of 16). Each thread moves one 16-byte vector, neighbouring
-// threads neighbouring vectors of the output, so stores coalesce fully;
+// Simple design: the kernel is dtype-blind (a row is row_bytes bytes). Each
+// thread moves one vector of the widest of 16, 8, 4 or 2 bytes that divides
+// the row and the two pointers' alignment (16 for every shipped model's
+// rows), neighbouring threads neighbouring vectors of the output, so stores
+// coalesce fully;
 // codebook reads go through the read-only path and stay in L2. It reads
 // the u8 indices of the file batch directly (no int32 widening pass) and
 // also takes int32 indices.
@@ -25,21 +27,48 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-template <typename Idx>
+template <typename Vec>
+__device__ __forceinline__ Vec zero_vec();
+template <>
+__device__ __forceinline__ uint4 zero_vec<uint4>() { return make_uint4(0u, 0u, 0u, 0u); }
+template <>
+__device__ __forceinline__ uint2 zero_vec<uint2>() { return make_uint2(0u, 0u); }
+template <>
+__device__ __forceinline__ unsigned int zero_vec<unsigned int>() { return 0u; }
+template <>
+__device__ __forceinline__ unsigned short zero_vec<unsigned short>() { return 0; }
+
+template <typename Idx, typename Vec>
 __global__ void dequantize_kernel(const Idx* __restrict__ idx,
-                                  const uint4* __restrict__ codebook,
-                                  uint4* __restrict__ out, int total, int k,
+                                  const Vec* __restrict__ codebook,
+                                  Vec* __restrict__ out, int total, int k,
                                   int vecs_per_row) {
   for (int v = blockIdx.x * blockDim.x + threadIdx.x; v < total;
        v += gridDim.x * blockDim.x) {
     const int row = v / vecs_per_row;
     const int col = v - row * vecs_per_row;
     const long long i = static_cast<long long>(idx[row]);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
+    Vec val = zero_vec<Vec>();
     if (i >= 0 && i < k) {
       val = __ldg(codebook + i * vecs_per_row + col);
     }
     out[v] = val;
+  }
+}
+
+template <typename Vec>
+void launch_vec(const void* idx, int index_bytes, const void* codebook, void* out,
+                int total, int k, int vecs_per_row, cudaStream_t s) {
+  const int threads = 256;
+  const int blocks = (total + threads - 1) / threads;
+  const Vec* cb = static_cast<const Vec*>(codebook);
+  Vec* o = static_cast<Vec*>(out);
+  if (index_bytes == 1) {
+    dequantize_kernel<uint8_t, Vec><<<blocks, threads, 0, s>>>(
+        static_cast<const uint8_t*>(idx), cb, o, total, k, vecs_per_row);
+  } else {
+    dequantize_kernel<int32_t, Vec><<<blocks, threads, 0, s>>>(
+        static_cast<const int32_t*>(idx), cb, o, total, k, vecs_per_row);
   }
 }
 
@@ -48,32 +77,32 @@ extern "C" const char* vq_error_string(int err) {
 }
 
 // idx: n indices of index_bytes (1 = u8, 4 = int32) each; codebook: k rows
-// of row_bytes; out: n rows of row_bytes. Pointers 16-byte aligned.
+// of row_bytes (even); out: n rows of row_bytes. The vector width is the
+// widest of 16, 8, 4, 2 bytes dividing row_bytes and both row pointers.
 extern "C" int vq_dequantize(const void* idx, int index_bytes,
                              const void* codebook, void* out, int n, int k,
                              int row_bytes, void* stream) {
-  if (n <= 0 || k <= 0 || row_bytes <= 0 || row_bytes % 16 != 0 ||
+  if (n <= 0 || k <= 0 || row_bytes <= 0 || row_bytes % 2 != 0 ||
       (index_bytes != 1 && index_bytes != 4)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int vecs_per_row = row_bytes / 16;
+  const unsigned long long align =
+      reinterpret_cast<uintptr_t>(codebook) | reinterpret_cast<uintptr_t>(out) |
+      static_cast<unsigned long long>(row_bytes);
+  const int width = align % 16 == 0 ? 16 : align % 8 == 0 ? 8 : align % 4 == 0 ? 4 : 2;
+  if (align % 2 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const int vecs_per_row = row_bytes / width;
   const long long total = static_cast<long long>(n) * vecs_per_row;
   if (total > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const int threads = 256;
-  const int blocks = static_cast<int>((total + threads - 1) / threads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uint4* cb = static_cast<const uint4*>(codebook);
-  uint4* o = static_cast<uint4*>(out);
-  if (index_bytes == 1) {
-    dequantize_kernel<uint8_t><<<blocks, threads, 0, s>>>(
-        static_cast<const uint8_t*>(idx), cb, o, static_cast<int>(total), k,
-        vecs_per_row);
-  } else {
-    dequantize_kernel<int32_t><<<blocks, threads, 0, s>>>(
-        static_cast<const int32_t*>(idx), cb, o, static_cast<int>(total), k,
-        vecs_per_row);
+  const int t = static_cast<int>(total);
+  switch (width) {
+    case 16: launch_vec<uint4>(idx, index_bytes, codebook, out, t, k, vecs_per_row, s); break;
+    case 8: launch_vec<uint2>(idx, index_bytes, codebook, out, t, k, vecs_per_row, s); break;
+    case 4: launch_vec<unsigned int>(idx, index_bytes, codebook, out, t, k, vecs_per_row, s); break;
+    default: launch_vec<unsigned short>(idx, index_bytes, codebook, out, t, k, vecs_per_row, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

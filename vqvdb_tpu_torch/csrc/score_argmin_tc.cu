@@ -89,6 +89,17 @@
 //     the scores of its pad codes to +inf before the minimum. Rows are read
 //     once per tile: a loop over tiles inside the kernel, row tile kept
 //     resident, would read them once.
+//   * Rows of any depth. Two full-depth row stages and two B chunks fit in
+//     shared memory up to f32 rows of depth 128 and bf16 rows of depth 256
+//     at K = 256. Deeper rows take the streamed-depth mode (kStream, an
+//     instantiation of its own so that the other modes run none of its
+//     code): the rows come 32 deep through the B ring, one stage holding
+//     one B chunk and the 128 rows x 32 depths of both consumer warpgroups
+//     (one bulk copy per row, issued by the 32 lanes of the B warp). The
+//     accumulators stay in registers across the chunks and the argmin runs
+//     after the last one, so products and sums keep the order of the other
+//     modes (ops/quantize.py:split_scores). Every chunk's rows and M pass
+//     through shared memory once per 128 rows, as M does in the ring mode.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -403,12 +414,48 @@ __device__ __forceinline__ void chunk_step(float (&acc)[32 * NB], const Frag<T>&
   if (d + 1 < nch) nxt.load(row_lo + (d + 1) * kChunk, row_hi + (d + 1) * kChunk);
 }
 
+// The streamed-depth mode's view of the ring: each stage holds a B chunk
+// and, after it, the chunk's rows. `next` waits for the next stage and loads
+// this thread's fragments of it; `cur` is that stage's shared address.
+template <typename T>
+struct StreamRing {
+  BRing* ring;
+  uint8_t* base;  // stage 0, generic address
+  uint32_t row;   // this thread's rows within a stage, in bytes
+  uint32_t cur;
+
+  __device__ __forceinline__ void next(Frag<T>& f) {
+    cur = ring->acquire(0);
+    const T* p = reinterpret_cast<const T*>(base + (cur - ring->base) + row);
+    f.load(p, p + 8 * kChunk);
+  }
+};
+
+// Chunk d in the streamed-depth mode: start its MMAs from `cur`, then, while
+// they run, wait for chunk d - 1 and give its stage back, and load chunk
+// d + 1 from the next stage into `nxt`.
+template <typename T, int NB>
+__device__ __forceinline__ void stream_step(float (&acc)[32 * NB], const Frag<T>& cur,
+                                            Frag<T>& nxt, int d, int nch, StreamRing<T>& sr) {
+#ifndef VQ_SKIP_MMA
+  start_chunk<T, NB>(acc, cur, b_descriptor(sr.cur), d == 0);
+#else  // measurement only: tools/score_phases.py
+  wgmma_commit();
+#endif
+  if (d > 0) {
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    sr.ring->give_back();
+  }
+  if (d + 1 < nch) sr.next(nxt);
+}
+
 // ---------------------------------------------------------------------------
 // The kernel
 // ---------------------------------------------------------------------------
 //
 // Shared memory: [B: all chunks of M when resident, else a ring of b_stages
-// chunks][row stages: warpgroup x stage x [64, fp]][c][mbarriers].
+// chunks (in the streamed-depth mode each followed by its rows)][row stages:
+// warpgroup x stage x [64, fp], none when streamed][c][mbarriers].
 // Barriers: full_a[wg][stage], empty_a[wg][stage], full_b[stage],
 // empty_b[stage]. Named barriers 1 and 2 pass the tensor cores between the
 // two consumer warpgroups when M is resident.
@@ -416,9 +463,12 @@ __device__ __forceinline__ void chunk_step(float (&acc)[32 * NB], const Frag<T>&
 // kRagged: the tile holds fewer than K valid codes (the last tile of a K
 // that is no multiple of the tile width), and its pad codes are masked.
 // kMerge: one of several tiles, merged into the running (score, code) pair.
-// Both are instantiations of their own, so that a call of one full tile runs
-// none of their code.
-template <typename T, int NB, bool kRagged, bool kMerge>
+// kStream: the streamed-depth mode, in which a ring stage holds a B chunk
+// and the chunk's rows of both warpgroups ([warpgroup][64 rows][32 depths]
+// after the chunk), and there are no full-depth row stages (a_stages = 0).
+// All three are instantiations of their own, so that a call of one full tile
+// of shallow rows runs none of their code.
+template <typename T, int NB, bool kRagged, bool kMerge, bool kStream>
 __global__ void __launch_bounds__(kThreads, 1)
     score_argmin_kernel(const T* __restrict__ h, const __nv_bfloat16* __restrict__ b,
                         const float* __restrict__ c, int32_t* __restrict__ out,
@@ -426,11 +476,13 @@ __global__ void __launch_bounds__(kThreads, 1)
                         int b_stages, int code0, int valid) {
   constexpr int K = 64 * NB;
   constexpr uint32_t kChunkBytes = 3 * 2 * 16 * K * 2;
+  constexpr uint32_t kRingStage =
+      kChunkBytes + (kStream ? kConsumers * kTileRows * kChunk * sizeof(T) : 0);
   extern __shared__ __align__(128) uint8_t smem[];
   const int nch = fp / kChunk;
   const uint32_t a_stage_bytes = kTileRows * fp * sizeof(T);
   uint8_t* b_s = smem;
-  uint8_t* a_s = b_s + static_cast<size_t>(resident ? nch : b_stages) * kChunkBytes;
+  uint8_t* a_s = b_s + static_cast<size_t>(resident ? nch : b_stages) * kRingStage;
   float* c_s = reinterpret_cast<float*>(a_s + kConsumers * a_stages * a_stage_bytes);
   const uint32_t bars = smem_u32(c_s + K);
   const uint32_t full_a = bars, empty_a = bars + 8 * kConsumers * kMaxAStages;
@@ -458,7 +510,35 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     // ---- producer warpgroup: one thread for the rows, one for B ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;");
-    if (threadIdx.x == kConsumers * 128) {
+    if constexpr (kStream) {
+      // One warp fills each stage: lane 0 the B chunk and the stage's byte
+      // count, every lane the rows lane, lane + 32, ... of the pair.
+      if (threadIdx.x / 32 == kConsumers * 4 + 1) {
+        const int lane = threadIdx.x & 31;
+        const uint8_t* b_bytes = reinterpret_cast<const uint8_t*>(b);
+        constexpr uint32_t kRowBytes = kChunk * sizeof(T);
+        int stage = 0, parity = 1;
+        for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
+          const long long row0 = 2LL * pair * kTileRows;
+          const int rows = n - row0 < 2 * kTileRows ? static_cast<int>(n - row0)
+                                                    : 2 * kTileRows;
+          for (int d = 0; d < nch; ++d) {
+            mbar_wait(empty_b + 8 * stage, parity);
+            const uint32_t dst = smem_u32(b_s + stage * kRingStage);
+            const uint32_t full = full_b + 8 * stage;
+            if (lane == 0) {
+              mbar_expect_tx(full, kChunkBytes + rows * kRowBytes);
+              bulk_load(dst, b_bytes + d * kChunkBytes, kChunkBytes, full);
+            }
+            __syncwarp();
+            for (int r = lane; r < rows; r += 32)
+              bulk_load(dst + kChunkBytes + r * kRowBytes, h + (row0 + r) * fp + d * kChunk,
+                        kRowBytes, full);
+            if (++stage == b_stages) stage = 0, parity ^= 1;
+          }
+        }
+      }
+    } else if (threadIdx.x == kConsumers * 128) {
       int stage = 0, parity = 1;
       for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
         for (int w = 0; w < kConsumers; ++w) {
@@ -507,33 +587,50 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row_in_tile = 16 * warp + g;
     float acc[32 * NB] = {};
     Frag<T> f0, f1;
-    BRing ring = {smem_u32(b_s), full_b, empty_b, kChunkBytes, b_stages, resident != 0, 0, 0, 0};
+    BRing ring = {smem_u32(b_s), full_b, empty_b, kRingStage, b_stages, resident != 0, 0, 0, 0};
     if (resident) {
       mbar_wait(full_b, 0);
       if (wg == 1) asm volatile("bar.arrive 1, 256;" ::: "memory");
     }
     int a_stage = 0, a_parity = 0;
     for (int pair = blockIdx.x; pair < pairs; pair += gridDim.x) {
-      const int slot = wg * a_stages + a_stage;
-      mbar_wait(full_a + 8 * slot, a_parity);
-      if (++a_stage == a_stages) a_stage = 0, a_parity ^= 1;
-      const T* row_lo =
-          reinterpret_cast<const T*>(a_s + slot * a_stage_bytes) + row_in_tile * fp + 8 * t;
-      const T* row_hi = row_lo + 8 * fp;
-      f0.load(row_lo, row_hi);
-      // This warpgroup's turn on the tensor cores.
-      if (resident) asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
-      fence_regs(acc);
+      if constexpr (kStream) {
+        // This thread's two rows of a stage lie after its B chunk.
+        StreamRing<T> sring{&ring, b_s,
+                            kChunkBytes + ((wg * kTileRows + row_in_tile) * kChunk + 8 * t) *
+                                              static_cast<uint32_t>(sizeof(T)),
+                            0};
+        sring.next(f0);
+        fence_regs(acc);
+        for (int d = 0; d < nch; d += 2) {
+          stream_step<T, NB>(acc, f0, f1, d, nch, sring);
+          if (d + 1 < nch) stream_step<T, NB>(acc, f1, f0, d + 1, nch, sring);
+        }
+        wgmma_wait_all();
+        fence_regs(acc);
+        ring.give_back();
+      } else {
+        const int slot = wg * a_stages + a_stage;
+        mbar_wait(full_a + 8 * slot, a_parity);
+        if (++a_stage == a_stages) a_stage = 0, a_parity ^= 1;
+        const T* row_lo =
+            reinterpret_cast<const T*>(a_s + slot * a_stage_bytes) + row_in_tile * fp + 8 * t;
+        const T* row_hi = row_lo + 8 * fp;
+        f0.load(row_lo, row_hi);
+        // This warpgroup's turn on the tensor cores.
+        if (resident) asm volatile("bar.sync %0, 256;" ::"r"(1 + wg) : "memory");
+        fence_regs(acc);
 
-      for (int d = 0; d < nch; d += 2) {
-        chunk_step<T, NB>(acc, f0, f1, d, nch, ring, row_lo, row_hi);
-        if (d + 1 < nch) chunk_step<T, NB>(acc, f1, f0, d + 1, nch, ring, row_lo, row_hi);
+        for (int d = 0; d < nch; d += 2) {
+          chunk_step<T, NB>(acc, f0, f1, d, nch, ring, row_lo, row_hi);
+          if (d + 1 < nch) chunk_step<T, NB>(acc, f1, f0, d + 1, nch, ring, row_lo, row_hi);
+        }
+        mbar_arrive(empty_a + 8 * slot);
+        if (resident) asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
+        wgmma_wait_all();
+        fence_regs(acc);
+        if (!resident) ring.give_back();
       }
-      mbar_arrive(empty_a + 8 * slot);
-      if (resident) asm volatile("bar.arrive %0, 256;" ::"r"(2 - wg) : "memory");
-      wgmma_wait_all();
-      fence_regs(acc);
-      if (!resident) ring.give_back();
 
 #ifdef VQ_SKIP_EPILOGUE  // measurement only: tools/score_phases.py
       if (t == 0 && (2LL * pair + wg) * kTileRows + row_in_tile < n)
@@ -629,6 +726,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 // Host side
 // ---------------------------------------------------------------------------
 
+// The kernel for one launch: ragged and merging tiles, and the streamed
+// depth, are instantiations of their own.
+template <typename T, int NB, bool kStream>
+auto kernel_for(bool ragged, bool merge) {
+  return merge ? (ragged ? score_argmin_kernel<T, NB, true, true, kStream>
+                         : score_argmin_kernel<T, NB, false, true, kStream>)
+               : (ragged ? score_argmin_kernel<T, NB, true, false, kStream>
+                         : score_argmin_kernel<T, NB, false, false, kStream>);
+}
+
 // Launches one kernel per tile of K codes (the last tile may be partial),
 // in code order; `best` carries the running minimum score across tiles and
 // is unused (may be null) when one tile covers all k codes.
@@ -643,18 +750,29 @@ int launch_nb(const void* h, const void* b, const void* c, void* out, void* best
   const int nch = fp / kChunk;
   if (k > K && best == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   // M resident with as many row stages as fit; else two row stages and a
-  // ring of B chunks.
+  // ring of B chunks; else (rows too deep for two full-depth stages) a ring
+  // of stages that each hold a B chunk and the rows' 32 depths of it.
+  // ops/quantize.py:score_plan makes the same choice.
   int resident = 1, a_stages = kMaxAStages, b_stages = 0;
+  bool streamed = false;
   while (a_stages > 2 && nch * chunk + a_stages * rows + fixed > kSmemLimit) --a_stages;
   size_t smem = nch * chunk + a_stages * rows + fixed;
   if (smem > kSmemLimit) {
-    if (2 * chunk + 2 * rows + fixed > kSmemLimit) {
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    }
     resident = 0;
-    b_stages = static_cast<int>((kSmemLimit - 2 * rows - fixed) / chunk);
-    if (b_stages > kMaxBStages) b_stages = kMaxBStages;
-    smem = b_stages * chunk + 2 * rows + fixed;
+    if (2 * chunk + 2 * rows + fixed <= kSmemLimit) {
+      b_stages = static_cast<int>((kSmemLimit - 2 * rows - fixed) / chunk);
+      if (b_stages > kMaxBStages) b_stages = kMaxBStages;
+      smem = b_stages * chunk + 2 * rows + fixed;
+    } else {
+      const size_t stage = chunk + static_cast<size_t>(kConsumers) * kTileRows * kChunk * sizeof(T);
+      streamed = true;
+      a_stages = 0;
+      b_stages = static_cast<int>((kSmemLimit - fixed) / stage);
+      if (b_stages > kMaxBStages) b_stages = kMaxBStages;
+      // two stages always fit at K <= 256; kept as the mode's stated limit
+      if (b_stages < 2) return static_cast<int>(cudaErrorInvalidConfiguration);
+      smem = b_stages * stage + fixed;
+    }
   }
   cudaError_t err;
   int device = 0, sms = 0;
@@ -667,10 +785,8 @@ int launch_nb(const void* h, const void* b, const void* c, void* out, void* best
   const size_t tile_elems = nch * chunk / 2;  // bf16 elements of B per code tile
   for (int code0 = 0; code0 < k; code0 += K) {
     const int valid = k - code0 < K ? k - code0 : K;
-    auto kernel = k > K ? (valid < K ? score_argmin_kernel<T, NB, true, true>
-                                     : score_argmin_kernel<T, NB, false, true>)
-                        : (valid < K ? score_argmin_kernel<T, NB, true, false>
-                                     : score_argmin_kernel<T, NB, false, false>);
+    auto kernel = streamed ? kernel_for<T, NB, true>(valid < K, k > K)
+                           : kernel_for<T, NB, false>(valid < K, k > K);
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);

@@ -39,7 +39,8 @@ from vqvdb_tpu_torch.ops.build import call, on_card, require
 def fused_dequantize(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """indices [N] (uint8 or int32 on the card; any int on the CPU),
     codebook [K, D] -> rows [N, D] in the codebook's dtype; an index outside
-    [0, K) gives an all-zero row."""
+    [0, K) gives an all-zero row. Rows of any width: the kernel moves 16, 8,
+    4 or 2 bytes a thread, the widest that divides a row."""
     require(indices.dim() == 1 and codebook.dim() == 2,
              f"want indices [N] and codebook [K, D], got "
              f"{tuple(indices.shape)} and {tuple(codebook.shape)}")
@@ -51,11 +52,8 @@ def fused_dequantize(indices: torch.Tensor, codebook: torch.Tensor) -> torch.Ten
              f"codebook must be float32 or bfloat16, got {codebook.dtype}")
     k, d = codebook.shape
     row_bytes = d * codebook.element_size()
-    require(row_bytes % 16 == 0, f"codebook rows of {row_bytes} B are not "
-             "a multiple of 16 B")
     indices = indices.contiguous()
     codebook = codebook.contiguous()
-    require(codebook.data_ptr() % 16 == 0, "codebook is not 16-byte aligned")
     n = indices.shape[0]
     out = torch.empty((n, d), dtype=codebook.dtype, device=codebook.device)
     if n:
@@ -246,6 +244,47 @@ def _check_scores(m: torch.Tensor, c: torch.Tensor) -> None:
 
 
 SMEM_LIMIT = 232448  # bytes of shared memory a block may take on the H100
+TILE_ROWS = 64  # rows of one consumer warpgroup's accumulator tile
+CONSUMERS = 2  # consumer warpgroups of a block
+MAX_A_STAGES = 4  # full-depth row stages a warpgroup may have
+MAX_B_STAGES = 4  # stages of the ring of B chunks
+BARRIER_BYTES = 8 * (2 * CONSUMERS * MAX_A_STAGES + 2 * MAX_B_STAGES)
+
+
+@dataclasses.dataclass(frozen=True)
+class ScorePlan:
+    """How the score kernel lays out one launch's shared memory:
+    "resident" (all of M and 2..4 full-depth row stages a warpgroup), "ring"
+    (2 full-depth row stages and a ring of B chunks) or "streamed" (a ring of
+    stages that each hold a B chunk and the rows' 32 depths of it)."""
+    mode: str
+    a_stages: int
+    b_stages: int
+    smem: int
+
+
+def score_plan(fp: int, kt: int, row_bytes: int) -> Optional[ScorePlan]:
+    """The kernel's choice (`launch_nb` in csrc/score_argmin_tc.cu) for rows
+    of depth `fp` (a multiple of 32) of `row_bytes` bytes a value at a code
+    tile of `kt`; None when no mode fits in SMEM_LIMIT."""
+    chunk = 3 * 2 * 16 * kt * 2
+    rows = CONSUMERS * TILE_ROWS * fp * row_bytes
+    fixed = kt * 4 + BARRIER_BYTES
+    nch = fp // CHUNK
+    a_stages = MAX_A_STAGES
+    while a_stages > 2 and nch * chunk + a_stages * rows + fixed > SMEM_LIMIT:
+        a_stages -= 1
+    smem = nch * chunk + a_stages * rows + fixed
+    if smem <= SMEM_LIMIT:
+        return ScorePlan("resident", a_stages, 0, smem)
+    if 2 * chunk + 2 * rows + fixed <= SMEM_LIMIT:
+        b_stages = min(MAX_B_STAGES, (SMEM_LIMIT - 2 * rows - fixed) // chunk)
+        return ScorePlan("ring", 2, b_stages, b_stages * chunk + 2 * rows + fixed)
+    stage = chunk + CONSUMERS * TILE_ROWS * CHUNK * row_bytes
+    b_stages = min(MAX_B_STAGES, (SMEM_LIMIT - fixed) // stage)
+    if b_stages < 2:
+        return None
+    return ScorePlan("streamed", 0, b_stages, b_stages * stage + fixed)
 
 
 def _launch_scores(entry: str, wrapper, rows: torch.Tensor, prep: PreparedScores,
@@ -259,11 +298,10 @@ def _launch_scores(entry: str, wrapper, rows: torch.Tensor, prep: PreparedScores
     n, fp = rows.shape
     require(rows.data_ptr() % 16 == 0, "rows are not 16-byte aligned")
     kt = prep.tile
-    # two stages of 64 rows for each of two warpgroups, c, barriers, and at
-    # least a two-chunk ring of the B operand
-    need = 4 * 64 * fp * rows.element_size() + 4 * kt + 192 + 2 * 192 * kt
-    require(need <= SMEM_LIMIT, f"rows of depth {f} need {need} B of shared "
-             f"memory, the card gives a block {SMEM_LIMIT}")
+    require(score_plan(fp, kt, rows.element_size()) is not None,
+            f"no shared-memory plan takes rows of depth {f} at a tile of {kt} "
+            f"codes: two stages of a B chunk and 128 rows x {CHUNK} depths "
+            f"exceed the {SMEM_LIMIT} B a block gets")
     out = torch.empty(n, dtype=torch.int32, device=rows.device)
     if n:
         best = (torch.empty(n, dtype=torch.float32, device=rows.device)

@@ -8,7 +8,9 @@
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+import json
+from pathlib import Path
+from typing import Optional, Tuple, Union
 
 import numpy as np
 
@@ -48,6 +50,10 @@ class LeafGrid:
     @property
     def channels(self) -> int:
         return int(self.leaves.shape[-1])
+
+    @property
+    def active_voxel_count(self) -> int:
+        return self.num_leaves * LEAF_DIM**3
 
     def index_bbox(self) -> Tuple[np.ndarray, np.ndarray]:
         """(min_corner, max_corner_exclusive) over all leaves, index space."""
@@ -113,6 +119,45 @@ class LeafGrid:
             nx * ld, ny * ld, nz * ld, c
         )
         return dense, lo
+
+    def save_npy(self, path: Union[str, Path], *, with_origins: bool = True) -> None:
+        """Save leaves as [N,8,8,8] (scalar) / [N,8,8,8,C] .npy, with an
+        `*._origins.npy` sidecar and a `*.gridmeta.json` of name,
+        background and transform (the JAX package's layout)."""
+        path = Path(path)
+        np.save(path, self.leaves[..., 0] if self.channels == 1 else self.leaves)
+        if with_origins:
+            np.save(path.with_suffix("._origins.npy"), self.origins)
+        meta = {"name": self.name, "background": self.background,
+                "transform": self.transform.tolist()}
+        path.with_suffix(".gridmeta.json").write_text(json.dumps(meta))
+
+    @classmethod
+    def load_npy(cls, path: Union[str, Path], *, name: Optional[str] = None) -> "LeafGrid":
+        """Read what `save_npy` writes. Without an origins sidecar the
+        leaves get row-major origins on a cube; without the json the name
+        is the file's stem (or `name`)."""
+        path = Path(path)
+        leaves = np.load(path)
+        origins_path = path.with_suffix("._origins.npy")
+        if origins_path.exists():
+            origins = np.load(origins_path)
+        else:
+            n = leaves.shape[0]
+            side = int(np.ceil(n ** (1.0 / 3.0)))
+            origins = np.stack(np.unravel_index(np.arange(n), (side, side, side)),
+                               axis=1).astype(np.int32) * LEAF_DIM
+        meta_path = path.with_suffix(".gridmeta.json")
+        transform = np.eye(4, dtype=np.float32)
+        background = 0.0
+        gname = name or path.stem
+        if meta_path.exists():
+            meta = json.loads(meta_path.read_text())
+            gname = name or meta.get("name", gname)
+            transform = np.asarray(meta.get("transform", transform), np.float32)
+            background = float(meta.get("background", 0.0))
+        return cls(name=gname, origins=origins, leaves=leaves,
+                   transform=transform, background=background)
 
 
 def mse(a: np.ndarray, b: np.ndarray) -> float:
