@@ -79,6 +79,24 @@ Phases, in this order; any failure raises and the script exits non-zero:
      nearest-code kernel at D = 160 (the streamed-depth mode), and the
      dequantize kernel on 40-byte bf16 rows (D = 20), each on a codec path
      with counters around it, then against its plain version.
+ 14. training: the flagship's ModelConfig at full width with the default
+     TrainConfig (batch 2048, bf16), 2 epochs over the phase-3 leaves (80/20
+     split): (1) one f32 train step (TF32 off) on 256 leaves from the same
+     params on the card and the CPU: gradients within TRAIN_GRAD_TOL of the
+     largest entry, params within the Adam-step tolerance, EMA state within
+     TRAIN_EMA_RTOL off near-tie codes; (2) the host loop `train` with the
+     counters around it (one nearest-code and one dequantize launch per
+     train step and val batch), recon loss falling; (3) `train_on_device`
+     with the same counts, equal to the host loop over its permutation
+     within FAST_TOL (cuDNN deterministic), and an epoch of it with no
+     host sync (CUDA sync debugging raising); (4) checkpoints and a resume
+     that equals the uninterrupted run; (5) the trained params through
+     save_model -> VQCodec -> v3 and evaluate_codec / codebook_report,
+     above the initial params' PSNR; (6) 2 steps of the reference arch and of
+     scalar_rvq2; (7) steps/s and leaves/s of one epoch of the host loop and
+     the fast path in turns; --profile adds a profiled train step. Then the
+     kernel rows nearest_indices_train and dequantize_train at a step's
+     shapes.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -92,6 +110,7 @@ outside a temporary directory.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -338,10 +357,11 @@ def dequantize_row(name, idx_u8, emb):
               "zero), bf16 and f32")
 
 
-def nearest_row(name, z, emb):
+def nearest_row(name, z, emb, prepared=True):
     """The nearest-code kernel on f32 latents z [N, D] against the codebook:
     the argmin of plain f32 scores off near-ties, the f64 argmin, planted
-    non-finite rows; times with the codebook prepared once."""
+    non-finite rows; times with the codebook prepared once (or, with
+    `prepared` False, on every call, as a train step runs it)."""
     import torch
 
     from vqvdb_tpu_torch.models.quantizer import nearest_indices, nearest_scores
@@ -362,7 +382,7 @@ def nearest_row(name, z, emb):
         name=name, route="cuda", source="vqvdb_tpu_torch/csrc/score_argmin_tc.cu",
         replaces="vqvdb_tpu/ops/quantize.py:41",
         max_abs_err=regret, mismatches=mis,
-        ms=cuda_ms(lambda: q.fused_nearest_indices(z, prep), graph=True),
+        ms=cuda_ms(lambda: q.fused_nearest_indices(z, prep if prepared else emb), graph=True),
         plain_ms=cuda_ms(lambda: nearest_indices(z, emb)),
         **score_bound(z.shape[0], z.shape[1], emb.shape[0], 4, products=6),
         library_ms=cuda_ms(lambda: torch.addmm(esq, z, mt).argmin(1)),
@@ -912,8 +932,15 @@ def tier_round_trip(label, codec, grid, path, **opts):
     dgrids, dstats = codec.decompress(path)
     dec = read_launches()
     out = dgrids[0]
-    if out.leaves.shape != grid.leaves.shape or not np.isfinite(out.leaves).all():
-        raise AssertionError(f"{label}: decoded leaves are not finite / of the input's shape")
+    if out.leaves.shape != grid.leaves.shape:
+        raise AssertionError(f"{label}: decoded leaves of shape {out.leaves.shape}, "
+                             f"the input's is {grid.leaves.shape}")
+    finite = np.isfinite(out.leaves.reshape(out.leaves.shape[0], -1)).all(1)
+    if not finite.all():
+        rows = np.flatnonzero(~finite)
+        raise AssertionError(
+            f"{label}: {rows.size} decoded leaves are not finite, in batches "
+            f"{sorted(set((rows // codec.ccfg.batch_size).tolist()))} (first {rows[:8]})")
     if not np.array_equal(out.origins, grid.origins):
         raise AssertionError(f"{label}: decoded origins differ from the input's")
     batches = -(-grid.num_leaves // codec.ccfg.batch_size)
@@ -1340,6 +1367,447 @@ def user_path(codec, grid, workdir: Path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: training
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAD_TOL = 1e-4  # card vs CPU gradient entries, of the tree's largest entry
+TRAIN_EMA_RTOL = 1e-5  # card vs CPU EMA statistics off near-tie codes
+FAST_TOL = 1e-5  # fast path vs host loop over its permutation (trace and params)
+
+
+def _quiet(*_):
+    pass
+
+
+def _adam_check(label, got, want, steps, lr):
+    """Params after `steps` Adam steps: per leaf at most 1% of the entries
+    more than 1e-2 * steps * lr apart and none more than 2 * steps * lr
+    (a gradient entry within rounding of zero takes a +-lr step). Returns
+    the largest difference."""
+    import torch
+
+    worst = 0.0
+    for a, b in zip(got, want):
+        d = (a.double().cpu() - b.double().cpu()).abs()
+        worst = max(worst, d.max().item())
+        if d.max().item() > 2 * steps * lr or (d > 1e-2 * steps * lr).double().mean() > 0.01:
+            raise AssertionError(f"{label}: params differ beyond the Adam-step tolerance "
+                                 f"(max {d.max().item():.3g}, lr {lr})")
+    return worst
+
+
+def _near_tie_codes(z, emb):
+    """Codes that rows of z [N, D] nearly tie between, on the f64 distances."""
+    z64, e64 = z.double(), emb.double()
+    d = (e64 * e64).sum(1)[None, :] - 2.0 * (z64 @ e64.T)
+    two = d.topk(2, dim=1, largest=False)
+    tie = (two.values[:, 1] - two.values[:, 0]) < NEAR_TIE_REL * two.values[:, 0].abs().clamp(min=1.0)
+    return set(two.indices[tie].flatten().tolist())
+
+
+def _step_with_grads(state, batch, opt, cfg, tcfg):
+    """train_step's arithmetic with its gradients kept: (grads, new param
+    leaves, new VQState, metrics, z)."""
+    import torch
+
+    from vqvdb_tpu_torch.models.quantizer import VQState
+    from vqvdb_tpu_torch.train import train as T
+
+    trainable = T.tree_map(lambda t: t.detach().requires_grad_(), T._trainable(state.params))
+    leaves = T.tree_leaves(trainable)
+    loss, (new_vq, metrics, z) = T._forward_loss(trainable, VQState(**state.params["vq"]),
+                                                 batch, cfg, tcfg)
+    grads = torch.autograd.grad(loss, leaves)
+    with torch.no_grad():
+        new_leaves, _ = opt.update(list(grads), state.opt_state, [t.detach() for t in leaves])
+    return grads, new_leaves, new_vq, {k: v.detach() for k, v in metrics.items()}, z.detach()
+
+
+def train_card_vs_cpu(cfg, leaves, seed, dev):
+    """Step 14.1: one f32 train step (TF32 off) from the same params on the
+    card and on the CPU: gradients, params after the step, EMA state."""
+    import torch
+
+    from vqvdb_tpu_torch.models.blocks import no_tf32
+    from vqvdb_tpu_torch.train import train as T
+
+    tcfg = T.TrainConfig(compute_dtype="float32", batch_size=leaves.shape[0], seed=seed)
+    opt = T.make_optimizer(tcfg, 10)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = T.make_train_state(cfg, tcfg, 10, d)
+        with no_tf32(d):
+            out[d.type] = _step_with_grads(state, torch.from_numpy(leaves).to(d), opt, cfg, tcfg)
+    (g_card, p_card, vq_card, m_card, z_card), (g_cpu, p_cpu, vq_cpu, m_cpu, z_cpu) = \
+        out[dev.type], out["cpu"]
+    scale = max(g.abs().max().item() for g in g_cpu)
+    grad_err = max((a.cpu() - b).abs().max().item() for a, b in zip(g_card, g_cpu))
+    if not grad_err <= TRAIN_GRAD_TOL * scale:
+        raise AssertionError(f"train step card vs cpu: gradients differ by {grad_err:.3g}, "
+                             f"> {TRAIN_GRAD_TOL} x {scale:.3g}")
+    param_err = _adam_check("train step card vs cpu", p_card, p_cpu, 1, tcfg.lr)
+    emb0 = T.make_train_state(cfg, tcfg, 10, "cpu").params["vq"]["embedding"]
+    ties = _near_tie_codes(z_cpu.reshape(-1, cfg.embedding_dim), emb0)
+    keep = torch.ones(cfg.num_embeddings, dtype=torch.bool)
+    keep[list(ties)] = False
+    ema_err = 0.0
+    for a, b in zip(vq_card, vq_cpu):
+        a, b = a.cpu()[keep], b[keep]
+        err = ((a - b).abs() / b.abs().clamp(min=1e-3)).max().item()
+        ema_err = max(ema_err, err)
+    if not ema_err <= TRAIN_EMA_RTOL:
+        raise AssertionError(f"train step card vs cpu: EMA state differs by {ema_err:.3g} "
+                             f"relative off {len(ties)} near-tie codes")
+    loss_err = max(abs(float(m_card[k]) - float(m_cpu[k])) / max(abs(float(m_cpu[k])), 1e-12)
+                   for k in m_cpu)
+    return {"leaves": leaves.shape[0], "grad_max_abs_err": grad_err, "grad_scale": scale,
+            "grad_tol": TRAIN_GRAD_TOL, "param_max_abs_err": param_err, "lr": tcfg.lr,
+            "ema_max_rel_err": ema_err, "near_tie_codes": len(ties),
+            "metric_max_rel_err": loss_err}
+
+
+def _split_counts(n_leaves, tcfg):
+    n_val = int(n_leaves * tcfg.val_fraction)
+    return (n_leaves - n_val) // tcfg.batch_size, n_val // tcfg.batch_size
+
+
+def train_host_loop(cfg, tcfg, pool_path, dev):
+    """Step 14.2: the host loop (`train`) over the pool's npy file, counters
+    around it: one nearest-code and one dequantize launch per train step and
+    per val batch; the epochs' recon loss falls."""
+    import torch
+
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.train.data import LeafDataset
+
+    ds = LeafDataset([pool_path])
+    steps, vals = _split_counts(len(ds), tcfg)
+    reset_launches()
+    t0 = time.perf_counter()
+    state, hist = T.train(ds, cfg, tcfg, device=dev, log_fn=_quiet)
+    torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+    wall = time.perf_counter() - t0
+    n = tcfg.epochs * (steps + vals)
+    expect_launches("train host loop", read_launches(), nearest_indices=n, dequantize=n)
+    recon = hist["train_recon"]
+    if not all(map(lambda v: v == v and abs(v) < float("inf"), recon + hist["val_loss"])):
+        raise AssertionError(f"train host loop: a loss is not finite: {hist}")
+    if not recon[-1] < recon[0]:
+        raise AssertionError(f"train host loop: recon loss did not fall: {recon}")
+    return state, {"epochs": tcfg.epochs, "steps": tcfg.epochs * steps,
+                   "val_batches": tcfg.epochs * vals, "wall_s": wall, "history": hist,
+                   "launches": {"nearest_indices": n, "dequantize": n}}
+
+
+def train_fast_path(cfg, tcfg, pool, dev):
+    """Step 14.3: `train_on_device` over the resident pool, counters around
+    it; then the host loop over the same split and permutations (batches
+    gathered on the host and uploaded), with cuDNN deterministic for both:
+    the metrics trace and params within FAST_TOL. Then one resident epoch
+    under CUDA sync debugging set to raise: no step waits for the device."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.train.fast import epoch_permutation, run_epochs, train_on_device
+
+    steps, vals = _split_counts(pool.shape[0], tcfg)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                     allow_tf32=cudnn.allow_tf32):
+        reset_launches()
+        state, trace = train_on_device(pool, cfg, tcfg, device=dev, log_fn=_quiet)
+        launches = read_launches()
+        n = tcfg.epochs * (steps + vals)
+        expect_launches("train fast path", launches, nearest_indices=n, dequantize=n)
+        split = np.random.default_rng(tcfg.seed).permutation(pool.shape[0])
+        n_val = int(pool.shape[0] * tcfg.val_fraction)
+        train_np, val_np = pool[split[n_val:]], pool[split[:n_val]]
+        bs = tcfg.batch_size
+        opt = T.make_optimizer(tcfg, steps * tcfg.epochs)
+        ref = T.make_train_state(cfg, tcfg, steps * tcfg.epochs, dev)
+        rows = []
+        for e in range(tcfg.epochs):
+            perm = epoch_permutation(tcfg, train_np.shape[0], e, dev).cpu().numpy()
+            acc = []
+            for i in range(steps):
+                batch = torch.from_numpy(train_np[perm[i * bs:(i + 1) * bs]]).to(dev)
+                ref, m, _ = T.train_step(ref, batch, opt, cfg, tcfg)
+                acc.append(torch.stack([m[k].float() for k in
+                                        ("loss", "recon_err", "vq_loss", "perplexity")]))
+            val = torch.stack([T.eval_step(ref.params, torch.from_numpy(
+                val_np[i * bs:(i + 1) * bs]).to(dev), cfg, tcfg)["loss"].float()
+                for i in range(vals)]).mean()
+            rows.append(torch.cat([torch.stack(acc).mean(0), val[None]]).cpu().numpy())
+    trace_err = float(np.abs(trace - np.array(rows)).max() / np.abs(np.array(rows)).max())
+    param_err = max((a - b).abs().max().item() for a, b in
+                    zip(T.tree_leaves(state.params), T.tree_leaves(ref.params)))
+    if not (trace_err <= FAST_TOL and param_err <= FAST_TOL):
+        raise AssertionError(f"train fast path vs host loop: trace {trace_err:.3g}, params "
+                             f"{param_err:.3g} > {FAST_TOL}")
+    if not np.isfinite(trace).all():
+        raise AssertionError(f"train fast path: metrics not finite: {trace}")
+    syncs = "not checked on the CPU"
+    if dev.type == "cuda":
+        # An epoch of resident steps and validation must not wait for the
+        # device: PyTorch raises on any synchronising call in this mode.
+        data = torch.from_numpy(train_np).to(dev)
+        val_data = torch.from_numpy(val_np).to(dev)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run_epochs(state, data, val_data, opt, cfg, tcfg, 0, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = 0
+    return state, {"epochs": tcfg.epochs, "steps": tcfg.epochs * steps,
+                   "launches": launches, "trace": trace.tolist(),
+                   "host_syncs_in_an_epoch": syncs,
+                   "vs_host_loop": {"trace_max_rel_err": trace_err,
+                                    "param_max_abs_err": param_err,
+                                    "bitwise": param_err == 0.0}}
+
+
+def train_resume(cfg, tcfg, pool, dev, workdir: Path):
+    """Step 14.4: train with a checkpoint (and a dead-code reset) after each
+    epoch; again, drop the last checkpoint and resume: the params of the two
+    runs, bit for bit under cuDNN's deterministic mode, else within FAST_TOL
+    with the reason logged."""
+    import shutil
+
+    import torch
+
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
+    from vqvdb_tpu_torch.train.fast import train_on_device
+
+    tcfg = dataclasses.replace(tcfg, dead_code_interval=1)
+    cudnn = torch.backends.cudnn
+    with cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                     allow_tf32=cudnn.allow_tf32):
+        full, _ = train_on_device(pool, cfg, tcfg, device=dev, log_fn=_quiet,
+                                  checkpoint_dir=str(workdir / "ckpt_a"))
+        train_on_device(pool, cfg, tcfg, device=dev, log_fn=_quiet,
+                        checkpoint_dir=str(workdir / "ckpt_b"))
+        manager = CheckpointManager(workdir / "ckpt_b")
+        steps = manager.all_steps()
+        shutil.rmtree(workdir / "ckpt_b" / f"step_{steps[-1]:010d}")
+        logs = []
+        resumed, _ = train_on_device(pool, cfg, tcfg, device=dev, log_fn=logs.append,
+                                     checkpoint_dir=str(workdir / "ckpt_b"))
+    if not any("resumed at epoch" in line for line in logs):
+        raise AssertionError(f"train resume: the run did not resume: {logs}")
+    pairs = list(zip(T.tree_leaves(resumed.params), T.tree_leaves(full.params)))
+    bitwise = all(torch.equal(a, b) for a, b in pairs)
+    err = max((a - b).abs().max().item() for a, b in pairs)
+    if resumed.step != full.step or not err <= FAST_TOL:
+        raise AssertionError(f"train resume: step {resumed.step} vs {full.step}, params "
+                             f"differ by {err:.3g}")
+    out = {"checkpoints": steps, "bitwise": bitwise, "param_max_abs_err": err}
+    if not bitwise:
+        out["reason"] = ("not bit for bit although cuDNN ran deterministic: an op outside "
+                         "cuDNN summed in another order")
+    return out
+
+
+def train_codec(cfg, params, grid, seed, workdir: Path):
+    """Step 14.5: the trained params -> save_model -> load_model -> VQCodec
+    (default CodecConfig): v3 round trip of the phase-3 field with the
+    counters around each half, then evaluate_codec / codebook_report on 16,384
+    leaves; the trained model must beat its own initial params there."""
+    from vqvdb_tpu_torch.core.artifact import load_model, save_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.eval.metrics import codebook_report, evaluate_codec
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.train import train as T
+
+    path = workdir / "trained.vqmodel"
+    save_model(path, params, cfg)
+    tree, cfg2 = load_model(path)
+    if cfg2 != cfg:
+        raise AssertionError(f"trained model: config {cfg2} read back as {cfg}")
+    codec = VQCodec(tree, cfg2, CodecConfig(), device="cuda")
+    res = round_trip("trained", codec, grid, workdir, min_psnr=0.0)
+    n = res["batches"]
+    expect_launches("trained model encode", res["encode_launches"], score_argmin=n)
+    expect_launches("trained model decode", res["decode_launches"], dequantize=n)
+    sample = grid.leaves[:16384]
+    report = evaluate_codec(codec, sample)
+    book = codebook_report(report["indices"], cfg.num_embeddings)
+    init = T.make_train_state(cfg, T.TrainConfig(seed=seed), 1, "cpu").params
+    save_model(workdir / "init.vqmodel", init, cfg)
+    base = evaluate_codec(VQCodec(*load_model(workdir / "init.vqmodel"), CodecConfig(),
+                                  device="cuda"), sample)
+    if not report["psnr_mean"] > base["psnr_mean"]:
+        raise AssertionError(f"trained model: PSNR {report['psnr_mean']:.2f} dB does not "
+                             f"beat its initial params' {base['psnr_mean']:.2f} dB")
+    return {"round_trip": res, "eval": {k: v for k, v in report.items()
+                                        if not hasattr(v, "shape")},
+            "init_psnr_mean": base["psnr_mean"], "perplexity": book["perplexity"],
+            "active_codes": book["active_codes"], "dead_codes": book["dead_codes"]}
+
+
+def train_other_archs(tcfg, pool, dev):
+    """Step 14.6: two steps of the reference arch (the CLI's default
+    --encoder-arch) and of scalar_rvq2's config (two nearest-code and two
+    dequantize launches a step)."""
+    import math
+
+    import torch
+
+    from vqvdb_tpu_torch.core.artifact import load_model_config
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.train import train as T
+
+    out = {}
+    for label, cfg in (("reference", ModelConfig()),
+                       ("scalar_rvq2", load_model_config(REPO / "models" / "scalar_rvq2.vqmodel"))):
+        opt = T.make_optimizer(tcfg, 2)
+        state = T.make_train_state(cfg, tcfg, 2, dev)
+        reset_launches()
+        losses = []
+        for i in range(2):
+            batch = torch.from_numpy(pool[i * tcfg.batch_size:(i + 1) * tcfg.batch_size]).to(dev)
+            state, m, _ = T.train_step(state, batch, opt, cfg, tcfg)
+            losses.append(float(m["loss"]))
+        launches = read_launches()
+        s = cfg.num_quantizers
+        expect_launches(f"train {label}", launches, nearest_indices=2 * s, dequantize=2 * s)
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train {label}: losses {losses}")
+        out[label] = {"losses": losses, "launches": launches}
+    return out
+
+
+def train_rates(cfg, tcfg, pool, pool_path, dev):
+    """Step 14.7: one epoch of the host loop and of the fast path, in turns
+    (host, fast, fast, host): steps/s and leaves/s of the whole epoch (train
+    steps, the val batches, the host's data handling)."""
+    import torch
+
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.train.data import LeafDataset
+    from vqvdb_tpu_torch.train.fast import train_on_device
+
+    one = dataclasses.replace(tcfg, epochs=1)
+    steps, vals = _split_counts(pool.shape[0], one)
+    ds = LeafDataset([pool_path])
+    runs = {"host": lambda: T.train(ds, cfg, one, device=dev, log_fn=_quiet),
+            "fast": lambda: train_on_device(pool, cfg, one, device=dev, log_fn=_quiet)}
+    out = {"steps": steps, "val_batches": vals, "batch": one.batch_size}
+    for name in ("host", "fast", "fast", "host"):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        runs[name]()
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        out.setdefault(name, []).append({"wall_s": wall, "steps_per_s": steps / wall,
+                                         "leaves_per_s": steps * one.batch_size / wall})
+    return out
+
+
+def profile_train_step(cfg, tcfg, pool, dev, out_dir: Path):
+    """--profile: torch.profiler over one steady train step; the table goes to
+    out_dir/profile_train_step.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vqvdb_tpu_torch.train import train as T
+
+    opt = T.make_optimizer(tcfg, 10)
+    state = T.make_train_state(cfg, tcfg, 10, dev)
+    batch = torch.from_numpy(pool[:tcfg.batch_size]).to(dev)
+    for _ in range(3):
+        state, _, _ = T.train_step(state, batch, opt, cfg, tcfg)
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        T.train_step(state, batch, opt, cfg, tcfg)
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+    (out_dir / "profile_train_step.txt").write_text(prof.key_averages().table(
+        sort_by="self_device_time_total", row_limit=30))
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    dev_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+    return {"wall_ms": wall * 1e3, "device_ms": dev_ms,
+            "idle_share": max(0.0, 1 - dev_ms / (wall * 1e3)),
+            "kernels": len(kernels), "top": [[name[:80], ms] for name, ms in top]}
+
+
+def train_kernel_rows(cfg, params, pool, tcfg, dev):
+    """The nearest-code and dequantize kernels at a train step's shapes: the
+    encoder outputs of one batch in the compute dtype, as f32 rows against
+    the trained codebook (prepared anew each call, as a step does), and
+    their int32 codes looked up in the codebook cast to the compute dtype."""
+    import torch
+
+    from vqvdb_tpu_torch.models.quantizer import dequantize
+    from vqvdb_tpu_torch.models.vqvae import encoder_apply
+    from vqvdb_tpu_torch.ops import quantize as q
+
+    emb = params["vq"]["embedding"]
+    with torch.inference_mode():
+        x = torch.from_numpy(pool[:tcfg.batch_size]).to(dev, getattr(torch, tcfg.compute_dtype))
+        z = encoder_apply(params["encoder"], x, cfg).reshape(-1, cfg.embedding_dim).float()
+        near = nearest_row("nearest_indices_train", z, emb, prepared=False)
+        idx = q.fused_nearest_indices(z, emb)
+        cb = emb.to(x.dtype)
+        got = q.fused_dequantize(idx, cb)
+        if not torch.equal(got, dequantize(idx, cb)):
+            raise AssertionError("dequantize_train: kernel rows differ from plain")
+        n, d = idx.shape[0], cb.shape[1]
+        nbytes = n * 4 + cb.numel() * cb.element_size() + n * d * cb.element_size()
+        idx_lib = idx.long()
+        deq = dict(
+            name="dequantize_train", route="cuda", source="vqvdb_tpu_torch/csrc/dequantize.cu",
+            replaces="vqvdb_tpu/ops/quantize.py:110", max_abs_err=0.0,
+            ms=cuda_ms(lambda: q.fused_dequantize(idx, cb), graph=True),
+            plain_ms=cuda_ms(lambda: dequantize(idx, cb)),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=cuda_ms(lambda: cb.index_select(0, idx_lib)),
+            check=f"train step: {n} int32 codes, D={d} {cb.dtype} rows, bit-equal")
+    return [near, deq]
+
+
+def train_phase(args, cfg, grid, workdir: Path, dev=None, tcfg=None, cpu_leaves: int = 256):
+    """Phase 14: the flagship's training at full width: steps 14.1-14.7 (see
+    the module docstring), each logged as `[train] <step> {...}`. Returns
+    (results, the two kernel rows at a train step's shapes)."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.train import train as T
+
+    dev = dev or torch.device("cuda")
+    tcfg = tcfg or T.TrainConfig(epochs=2, seed=args.seed)
+    pool = grid.leaves
+    pool_path = workdir / "pool.npy"
+    np.save(pool_path, pool[..., 0])
+    res = {}
+
+    def step(name, value):
+        res[name] = value
+        log(f"[train] {name} {json.dumps(value)}")
+
+    step("card_vs_cpu", train_card_vs_cpu(cfg, pool[:cpu_leaves], args.seed, dev))
+    step("host_loop", train_host_loop(cfg, tcfg, pool_path, dev)[1])
+    state, fast = train_fast_path(cfg, tcfg, pool, dev)
+    step("fast_path", fast)
+    step("resume", train_resume(cfg, tcfg, pool, dev, workdir))
+    step("codec", train_codec(cfg, state.params, grid, args.seed, workdir))
+    step("archs", train_other_archs(tcfg, pool, dev))
+    step("rates", train_rates(cfg, tcfg, pool, pool_path, dev))
+    if args.profile is not None:
+        step("profile", profile_train_step(cfg, tcfg, pool, dev, args.profile))
+    rows = train_kernel_rows(cfg, state.params, pool, tcfg, dev) if dev.type == "cuda" else []
+    return res, rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1402,10 +1870,11 @@ def main() -> int:
         kernels += log_kernel_rows(
             side_kernel_phase(ref_codec, grid, side["vec3"][2], vgrid))
         if args.profile is not None:
-            for label, codec, data in (("reference", ref_codec, grid),
-                                       ("scalar_rvq2", side["scalar_rvq2"][2], grid),
-                                       ("vec3", side["vec3"][2], vgrid)):
-                prof = profile_batches(codec, data, args.profile, f"{label}_")
+            # (not `codec`: the flagship's codec runs the later phases)
+            for label, side_codec, data in (("reference", ref_codec, grid),
+                                            ("scalar_rvq2", side["scalar_rvq2"][2], grid),
+                                            ("vec3", side["vec3"][2], vgrid)):
+                prof = profile_batches(side_codec, data, args.profile, f"{label}_")
                 log(f"[profile {label}] {json.dumps(prof)}")
 
         torch.backends.cudnn.allow_tf32 = False
@@ -1442,6 +1911,9 @@ def main() -> int:
         deep_res, deep_rows = deep_rows_phase(args.seed, grid, Path(tmp))
         log(f"[deep] {json.dumps(deep_res)}")
         kernels += log_kernel_rows(deep_rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        train_res, train_rows = train_phase(args, cfg, grid, Path(tmp))
+        kernels += log_kernel_rows(train_rows)
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
@@ -1458,6 +1930,8 @@ def main() -> int:
     launches["nearest_d160"] = deep_res["deep160_unfused"]["encode_launches"]["nearest_indices"]
     launches["score_argmin_bf16_d1024"] = deep_res["wide1024"]["encode_launches"]["score_argmin"]
     launches["dequantize_bf16_d20"] = deep_res["d20"]["decode_launches"]["dequantize"]
+    launches["nearest_indices_train"] = train_res["host_loop"]["launches"]["nearest_indices"]
+    launches["dequantize_train"] = train_res["host_loop"]["launches"]["dequantize"]
     for row in kernels:
         row["launches"] = launches[row["name"]]
         if row["launches"] < 1:

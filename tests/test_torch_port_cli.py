@@ -7,7 +7,7 @@ except in the index bytes of near-tie rows (best and runner-up JAX scores
 within 1e-5 relative: the flagship holds near-duplicate codes); `info`,
 `verify`, `transcode` and `vdbinfo` must print the same JSON; usage errors
 exit 2 in both; the subcommands not ported yet exit 2 naming the ROADMAP.md
-item that brings them. The port's encode / decode JSON has the JAX keys and
+item that brings them (train, datagen and eval: test_torch_port_eval.py). The port's encode / decode JSON has the JAX keys and
 `host_seconds`.
 """
 
@@ -272,8 +272,7 @@ def test_usage_errors_exit_as_jax(tmp_path, capsys, argv):
     assert rc == jrc and rc in (1, 2)
 
 
-@pytest.mark.parametrize("cmd,item", [("train", "item 12"), ("datagen", "item 12"),
-                                      ("eval", "item 11"), ("serve", "item 14"),
+@pytest.mark.parametrize("cmd,item", [("serve", "item 14"),
                                       ("import-torch", "item 14"),
                                       ("export-checkpoint", "item 14"),
                                       ("export-torch", "item 14"), ("export-onnx", "item 14")])

@@ -10,7 +10,9 @@ against the writer's own decode, which differs between the packages by
 rounding (~1e-6 here), so v6 files are compared through their indices and
 their decoded leaves, and the int8 tier's bound (max error <= max scale / 2)
 is held on each package's own file. The JAX side runs its XLA paths and the
-Pallas residual block in interpret mode, as its own tests run them.
+Pallas residual block in interpret mode, as its own tests run them, and its
+native LZ4 encoder (`jax_native_lz4`), whose bytes the port's v5-lz4 files
+must equal.
 """
 
 import dataclasses
@@ -30,12 +32,14 @@ from vqvdb_tpu.format import verify as jverify
 from vqvdb_tpu.models import quantizer as jquantizer
 from vqvdb_tpu.models import vqvae as jvqvae
 from vqvdb_tpu.models.vqvae import init_vqvae_params
+from vqvdb_tpu.runtime import native_io as jnative
 from vqvdb_tpu.runtime.codec import VQCodec as JaxCodec
 from vqvdb_tpu.vdb.grid import LeafGrid as JaxLeafGrid
 from vqvdb_tpu_torch.core.artifact import load_model
 from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
 from vqvdb_tpu_torch.format import transcode, verify
 from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+from vqvdb_tpu_torch.runtime import native_io
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.utils.errors import FormatError, ModelMismatchError
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
@@ -140,6 +144,27 @@ def _codecs(tree, cfg, jparams, jcfg, **opts):
 # ---------------------------------------------------------------------------
 # The flagship on the v6 int8 tier: one pair of files for several tests
 # ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_native_lz4(tmp_path_factory):
+    """The JAX package's native library, loaded in this process. Its loader
+    builds it with `native/build.sh` straight into place and, if it cannot
+    load it, keeps its pure-Python LZ4 for the rest of the process: valid
+    blocks, but not the native encoder's bytes. Under parallel test workers
+    one worker can load while another's build is still writing the file
+    ("file too short"), and a v5-lz4 transcode then differs from the port's
+    by a few bytes. Where that happened, load a private copy built from the
+    same source, written to a temporary name and renamed into place."""
+    with pytest.MonkeyPatch.context() as mp:
+        if jnative.backend() != "native":
+            lib = tmp_path_factory.mktemp("jax_native") / "libvqvdb_native.so"
+            native_io._build(lib)
+            mp.setattr(jnative, "_LIB_PATH", lib)
+            mp.setattr(jnative, "_tried", False)
+            mp.setattr(jnative, "_lib", None)
+        assert jnative.backend() == "native"
+        yield
+
 
 @pytest.fixture(scope="module")
 def flagship(tmp_path_factory):

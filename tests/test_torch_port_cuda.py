@@ -476,3 +476,87 @@ def test_card_dequantize_any_row_width(rng, d, dtype, idx_dtype):
     shifted = torch.empty(k * d + 1, dtype=dtype, device=dev)[1:].view(k, d)
     shifted.copy_(cb)
     assert torch.equal(q.fused_dequantize(idx.to(dev, idx_dtype), shifted), want)
+
+
+# ---------------------------------------------------------------------------
+# Training: the quantizer's kernel calls and a train step, card against CPU
+# ---------------------------------------------------------------------------
+
+def _near_tie_codes(z, emb):
+    e = emb.double()
+    d = (e * e).sum(1)[None, :] - 2.0 * (z.double() @ e.T)
+    two = d.topk(2, dim=1, largest=False)
+    tie = (two.values[:, 1] - two.values[:, 0]) < 1e-5 * two.values[:, 0].abs().clamp(min=1.0)
+    return set(two.indices[tie].flatten().tolist())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stages", [1, 2])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_train_quantizer(rng, stages, dtype):
+    """vq_train_forward / rvq_train_forward on the card (one nearest-code and
+    one dequantize launch a stage) against the same call on the CPU (their
+    plain versions): codewords and the estimator's output equal where the
+    codes agree, EMA state within 1e-5 relative off near-tie codes,
+    commitment and perplexity within 1e-5 relative."""
+    from vqvdb_tpu_torch.models import quantizer as mq
+
+    dev = _card()
+    k, d = 256, 128
+    gen = torch.Generator().manual_seed(0)
+    state = mq.init_vq_state(gen, k, d) if stages == 1 else mq.init_rvq_state(gen, stages, k, d)
+    z = torch.from_numpy(_rand(rng, 64, 4, 4, 4, d) * 0.3).to(dtype)
+    fwd = mq.vq_train_forward if stages == 1 else mq.rvq_train_forward
+    before = (q.fused_nearest_indices.launches, q.fused_dequantize.launches)
+    out = fwd(mq.VQState(*(t.to(dev) for t in state)), z.to(dev), 0.25, 0.95, 1e-4)
+    torch.cuda.synchronize()
+    assert (q.fused_nearest_indices.launches - before[0],
+            q.fused_dequantize.launches - before[1]) == (stages, stages)
+    ref = fwd(state, z, 0.25, 0.95, 1e-4)
+    emb0 = state.embedding if stages == 1 else state.embedding[0]
+    ties = _near_tie_codes(z.float().reshape(-1, d), emb0)
+    keep = torch.ones(k, dtype=torch.bool)
+    keep[list(ties)] = False
+    for name in mq.VQState._fields:
+        a, b = getattr(out[1], name).cpu(), getattr(ref[1], name)
+        if name == "cluster_size":
+            a, b = a[..., keep], b[..., keep]
+        else:
+            a, b = a[..., keep, :], b[..., keep, :]
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6)
+    for a, b in zip(out[2:], ref[2:]):
+        assert float(a) == pytest.approx(float(b), rel=1e-5)
+    if not ties:
+        torch.testing.assert_close(out[0].cpu(), ref[0], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["packed", "reference"])
+def test_card_train_step_matches_cpu(rng, arch):
+    """One f32 train step (TF32 off) of a full-width model from the same
+    params on the card and on the CPU: metrics within 1e-5 relative, params
+    within the Adam-step tolerance (at most 1% of a leaf's entries more than
+    1e-2 lr apart, none more than 2 lr)."""
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.models.blocks import no_tf32
+    from vqvdb_tpu_torch.train import train as T
+
+    dev = _card()
+    cfg = ModelConfig(encoder_arch=arch)
+    tcfg = T.TrainConfig(compute_dtype="float32", batch_size=64)
+    opt = T.make_optimizer(tcfg, 10)
+    x = torch.from_numpy(rng.random((64, 8, 8, 8, 1), np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        state = T.make_train_state(cfg, tcfg, 10, d)
+        with no_tf32(d):
+            out[d.type] = T.train_step(state, x.to(d), opt, cfg, tcfg)
+    (s_card, m_card, _), (s_cpu, m_cpu, _) = out["cuda"], out["cpu"]
+    for key in m_cpu:
+        assert float(m_card[key]) == pytest.approx(float(m_cpu[key]), rel=1e-5), key
+    lr = tcfg.lr
+    for a, b in zip(T.tree_leaves(T._trainable(s_card.params)),
+                    T.tree_leaves(T._trainable(s_cpu.params))):
+        diff = (a.cpu().double() - b.double()).abs()
+        assert diff.max() <= 2 * lr and (diff > 1e-2 * lr).double().mean() <= 0.01
+    assert s_card.params["encoder"]["proj"]["w"].device.type == "cuda"

@@ -34,6 +34,10 @@ def test_every_port_module_imports_without_jax():
     for want in ("vqvdb_tpu_torch.cli", "vqvdb_tpu_torch.api",
                  "vqvdb_tpu_torch.vdb.openvdb_io", "vqvdb_tpu_torch.vdb.blosc",
                  "vqvdb_tpu_torch.runtime.dense", "vqvdb_tpu_torch.runtime.codec",
-                 "vqvdb_tpu_torch.ops.quantize", "vqvdb_tpu_torch.format.vqvdb"):
+                 "vqvdb_tpu_torch.ops.quantize", "vqvdb_tpu_torch.format.vqvdb",
+                 "vqvdb_tpu_torch.train.train", "vqvdb_tpu_torch.train.fast",
+                 "vqvdb_tpu_torch.train.data", "vqvdb_tpu_torch.train.synthetic",
+                 "vqvdb_tpu_torch.train.checkpoint", "vqvdb_tpu_torch.eval.metrics",
+                 "vqvdb_tpu_torch.eval.report"):
         assert want in names
     assert leaked == "LEAKED []"

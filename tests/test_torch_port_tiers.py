@@ -6,7 +6,8 @@ must produce byte-identical files, and each package reads the other's. zlib
 and lzma bytes depend on the library version, so files are compared only
 within one process. LZ4 bytes depend on the encoder: the JAX package must
 run its native codec (the same `native/vqvdb_native.cpp` the port builds),
-which the tests assert. Every error the JAX reader and writer raise is
+which the tests assert (`jax_native_lz4` of test_torch_port_codec_tiers.py
+makes sure it does under parallel workers). Every error the JAX reader and writer raise is
 mirrored: both packages raise the same class. The residual math must be
 bit-equal to the JAX package's.
 """
@@ -24,6 +25,8 @@ from vqvdb_tpu_torch.runtime import native_io, residual
 from vqvdb_tpu_torch.utils.errors import FormatError, VersionError
 from vqvdb_tpu.utils.errors import FormatError as JaxFormatError
 from vqvdb_tpu.utils.errors import VersionError as JaxVersionError
+
+from test_torch_port_codec_tiers import jax_native_lz4  # noqa: F401  (autouse)
 
 # (grid name, leaves, residual mode) of every file: an empty grid and a
 # residual-free grid beside residual ones where the version allows

@@ -1,7 +1,10 @@
-"""Command-line interface (counterpart of `vqvdb_tpu/cli.py`, inference
-half): encode / decode / info / verify / transcode / sequences / OpenVDB
-tools / bench.
+"""Command-line interface (counterpart of `vqvdb_tpu/cli.py`): train /
+datagen / eval / encode / decode / info / verify / transcode / sequences /
+OpenVDB tools / bench.
 
+    python -m vqvdb_tpu_torch.cli datagen data/ --volumes 8
+    python -m vqvdb_tpu_torch.cli train --data-dir data/ --model-path out/m.vqmodel
+    python -m vqvdb_tpu_torch.cli eval --data-dir data/ --model out/m.vqmodel
     python -m vqvdb_tpu_torch.cli encode scene.vdb scene.vqvdb --model m.vqmodel
     python -m vqvdb_tpu_torch.cli decode scene.vqvdb recon.vdb --model m.vqmodel
     python -m vqvdb_tpu_torch.cli info scene.vqvdb
@@ -9,11 +12,12 @@ tools / bench.
 
 Every subcommand that runs a model takes `--device` (default `cuda`; `cpu`
 runs the kernels' plain versions). Output is one JSON object, with the JAX
-CLI's keys and, where the codec reports it, `host_seconds`. Exit codes are
-the JAX CLI's: 0 done, 1 a file or model error, 2 a usage error, 130 an
-encode stopped by ^C. Not ported yet, exiting 2 with the ROADMAP.md item
-that brings them: train and datagen (item 12), eval (item 11), serve and
-the import / export commands (item 14), --data-parallel (item 13).
+CLI's keys and, where the codec reports it, `host_seconds`; `train` logs its
+epochs and writes the model, its `.history.json` and checkpoints (the
+port's own format, train/checkpoint.py). Exit codes are the JAX CLI's: 0
+done, 1 a file or model error, 2 a usage error, 130 an encode stopped by
+^C. Not ported yet, exiting 2 with the ROADMAP.md item that brings them:
+serve and the import / export commands (item 14), --data-parallel (item 13).
 """
 
 from __future__ import annotations
@@ -31,9 +35,6 @@ from vqvdb_tpu_torch.utils.errors import VqvdbError
 REPO_MODELS = Path(__file__).resolve().parent.parent / "models"
 
 NOT_PORTED = {
-    "train": "Queue 1 item 12 (training)",
-    "datagen": "Queue 1 item 12 (training)",
-    "eval": "Queue 1 item 11 (eval)",
     "serve": "Queue 1 item 14 (serving)",
     "import-torch": "Queue 1 item 14 (interop)",
     "export-checkpoint": "Queue 1 item 14 (interop)",
@@ -398,6 +399,116 @@ def _cmd_extract(args) -> int:
     return 0 if written else 2
 
 
+def _cmd_train(args) -> int:
+    from vqvdb_tpu_torch.core.artifact import save_model
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
+    from vqvdb_tpu_torch.train.data import LeafDataset, find_npy_files
+    from vqvdb_tpu_torch.train.train import TrainConfig, train
+
+    files = find_npy_files(args.data_dir)
+    if not files:
+        return _error(f"no .npy files in {args.data_dir}")
+    print(f"found {len(files)} .npy files")
+    ds = LeafDataset(files, in_channels=args.in_channels, stride=args.stride)
+    print(f"dataset: {len(ds)} leaves")
+    mcfg = ModelConfig(in_channels=args.in_channels, embedding_dim=args.embedding_dim,
+                       num_embeddings=args.num_embeddings,
+                       num_quantizers=args.num_quantizers, encoder_arch=args.encoder_arch)
+    tcfg = TrainConfig(epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+                       compute_dtype=args.compute_dtype, pool_dtype=args.pool_dtype,
+                       pool_segments=args.pool_segments, val_fraction=args.val_fraction,
+                       seed=args.seed)
+    ckpt_dir = args.checkpoint_dir or str(Path(args.model_path).parent / "ckpts")
+    if args.device_resident:
+        from vqvdb_tpu_torch.train.fast import train_on_device
+
+        state, trace = train_on_device(ds.gather(np.arange(len(ds))), mcfg, tcfg,
+                                       checkpoint_dir=ckpt_dir, resume=not args.no_resume,
+                                       device=args.device)
+        history = {"loss": trace[:, 0].tolist(), "recon": trace[:, 1].tolist(),
+                   "vq": trace[:, 2].tolist(), "perplexity": trace[:, 3].tolist(),
+                   "val_loss": trace[:, 4].tolist()}
+    else:
+        state, history = train(ds, mcfg, tcfg, checkpoint_dir=ckpt_dir,
+                               resume=not args.no_resume, device=args.device)
+    Path(args.model_path).parent.mkdir(parents=True, exist_ok=True)
+    # Model selection: the best-val state where one was recorded, else the
+    # final state.
+    export_params = state.params
+    manager = CheckpointManager(ckpt_dir)
+    best = manager.restore_best(state)
+    if best is not None:
+        bstep, bstate = best
+        meta = manager.read_best_metrics() or {}
+        print(f"exporting best-val checkpoint: step {bstep} "
+              f"val={meta.get('val_loss', float('nan')):.6f}")
+        export_params = bstate.params
+    save_model(args.model_path, export_params, mcfg)
+    print(f"model saved to {args.model_path}")
+    Path(args.model_path).with_suffix(".history.json").write_text(json.dumps(history))
+    return 0
+
+
+def _cmd_datagen(args) -> int:
+    """Procedural training data (npy leaf files)."""
+    from vqvdb_tpu_torch.train.synthetic import make_leaf_dataset_files
+
+    paths = make_leaf_dataset_files(args.out_dir, n_volumes=args.volumes, size=args.size,
+                                    seed=args.seed, channels=args.channels,
+                                    family=args.family)
+    total = sum(int(np.load(p, mmap_mode="r").shape[0]) for p in paths)
+    print(json.dumps({"files": len(paths), "leaves": total, "dir": str(args.out_dir)}))
+    return 0
+
+
+def _cmd_eval(args) -> int:
+    """Quality evaluation of a model over a leaf dataset (JSON; with
+    --report-dir also the plots and report.md)."""
+    import torch
+
+    from vqvdb_tpu_torch.eval.metrics import codebook_report, evaluate_codec
+    from vqvdb_tpu_torch.train.data import LeafDataset, find_npy_files
+
+    files = find_npy_files(args.data_dir)
+    if not files:
+        return _error(f"no .npy files in {args.data_dir}")
+    ds = LeafDataset(files, in_channels=args.in_channels, stride=args.stride)
+    leaves = ds.gather(np.arange(min(len(ds), args.max_leaves)))
+    codec = _make_codec(args)
+    report = evaluate_codec(codec, leaves)
+    mcfg = codec.mcfg
+    cb = codebook_report(report["indices"], mcfg.num_embeddings)
+    if args.report_dir:
+        from vqvdb_tpu_torch.eval.report import write_report
+        from vqvdb_tpu_torch.models.vqvae import encoder_apply
+
+        # 512 leaves feed the latent and error diagnostics; the montage
+        # takes the first 6.
+        k = min(512, leaves.shape[0])
+        sample = leaves[:k]
+        recon = codec.decode_indices(report["indices"][:k])
+        with torch.no_grad():
+            z = encoder_apply(codec.params["encoder"],
+                              torch.from_numpy(sample).to(codec.device), mcfg)
+        report["latent_sample"] = z.cpu().numpy().reshape(-1, mcfg.embedding_dim)
+        cb["embedding"] = codec.params["vq"]["embedding"].cpu().numpy().reshape(
+            -1, mcfg.embedding_dim)
+        if mcfg.num_quantizers > 1:
+            # One PCA point per (stage, code): recolour per stage.
+            idx = np.asarray(report["indices"]).reshape(-1, mcfg.num_quantizers)
+            cb["pca_counts"] = np.concatenate([
+                np.bincount(idx[:, s], minlength=mcfg.num_embeddings)
+                for s in range(mcfg.num_quantizers)]).astype(np.float64)
+        md = write_report(args.report_dir, report, cb, sample_leaves=sample,
+                          sample_recon=recon, title=f"eval: {args.model}")
+        print(f"report written to {md}", file=sys.stderr)
+    out = {k: v for k, v in report.items() if not isinstance(v, np.ndarray)}
+    out.update({k: v for k, v in cb.items() if not isinstance(v, np.ndarray)})
+    print(json.dumps(out, indent=2))
+    return 0
+
+
 def _codec_options(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="where the model runs: cuda (default) or cpu")
@@ -422,6 +533,63 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="vqvdb_tpu_torch",
                                 description="VQ-VAE volume codec on PyTorch / CUDA")
     sub = p.add_subparsers(dest="command", required=True)
+
+    pt = sub.add_parser("train", help="Train the VQ-VAE model.")
+    pt.add_argument("--data-dir", required=True, help="directory with .npy leaf files")
+    pt.add_argument("--model-path", default="models/vqvae.vqmodel")
+    pt.add_argument("--checkpoint-dir", default=None,
+                    help="default: ckpts/ beside --model-path")
+    pt.add_argument("--epochs", type=int, default=30)
+    pt.add_argument("--batch-size", type=int, default=2048)
+    pt.add_argument("--lr", type=float, default=1e-4)
+    pt.add_argument("--num-embeddings", type=int, default=256)
+    pt.add_argument("--num-quantizers", type=int, default=1,
+                    help="residual-VQ stages: 1 = the reference architecture; 2+ = "
+                         "S bytes per latent position (effective codebook K^S)")
+    pt.add_argument("--embedding-dim", type=int, default=128)
+    pt.add_argument("--encoder-arch", default="reference",
+                    choices=["reference", "packed", "packed_lite", "packed_stem"],
+                    help="encoder graph family (packed_stem is not ported yet)")
+    pt.add_argument("--in-channels", type=int, default=1, choices=[1, 3])
+    pt.add_argument("--stride", type=int, default=1, help="dataset subsample stride")
+    pt.add_argument("--compute-dtype", default="bfloat16")
+    pt.add_argument("--pool-dtype", default="float32", choices=["float32", "bfloat16"],
+                    help="dtype of the device-resident pool (--device-resident only)")
+    pt.add_argument("--pool-segments", type=int, default=1,
+                    help="--device-resident only: each dead-code interval runs over "
+                         "1/S of the pool, rotating (TrainConfig.pool_segments)")
+    pt.add_argument("--val-fraction", type=float, default=0.2,
+                    help="held-out fraction for validation and best-val selection")
+    pt.add_argument("--seed", type=int, default=0)
+    pt.add_argument("--device", default="cuda",
+                    help="where training runs: cuda (default) or cpu")
+    pt.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pt.add_argument("--device-resident", action="store_true",
+                    help="keep the whole dataset in device memory (train/fast.py)")
+    pt.add_argument("--no-resume", action="store_true")
+    pt.set_defaults(func=_cmd_train)
+
+    pv = sub.add_parser("eval", help="Quality evaluation over a leaf dataset.")
+    pv.add_argument("--data-dir", required=True)
+    pv.add_argument("--model", required=True)
+    pv.add_argument("--in-channels", type=int, default=1, choices=[1, 3])
+    pv.add_argument("--stride", type=int, default=1)
+    pv.add_argument("--max-leaves", type=int, default=100_000)
+    _codec_options(pv)
+    pv.add_argument("--report-dir", default=None,
+                    help="also write PNG plots + report.md into this directory")
+    pv.set_defaults(func=_cmd_eval)
+
+    pg = sub.add_parser("datagen", help="Generate procedural npy leaf data.")
+    pg.add_argument("out_dir")
+    pg.add_argument("--volumes", type=int, default=8)
+    pg.add_argument("--size", type=int, default=64)
+    pg.add_argument("--seed", type=int, default=0)
+    pg.add_argument("--channels", type=int, default=1, choices=[1, 3])
+    pg.add_argument("--family", default="smoke", choices=["smoke", "levelset", "mixed"],
+                    help="scalar volume family: fog densities, narrow-band level "
+                         "sets, or alternating")
+    pg.set_defaults(func=_cmd_datagen)
 
     pe = sub.add_parser("encode", help="Compress grids to a .vqvdb file.")
     pe.add_argument("input", help=".vdb / .npy leaf file, or a directory of them")

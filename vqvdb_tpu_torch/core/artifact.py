@@ -1,4 +1,4 @@
-"""Reader for `VQMODEL1` model artifacts (counterpart of
+"""Reader and writer of `VQMODEL1` model artifacts (counterpart of
 `vqvdb_tpu/core/artifact.py`).
 
 Layout (little-endian):
@@ -9,10 +9,13 @@ Layout (little-endian):
 The params come back as a nested dict of numpy arrays, keyed as the JAX
 package's `VQVAEParams._asdict()` (encoder / decoder / vq). Every
 truncation — header, config block or params blob — raises ArtifactError.
+`save_model` writes the port's params tree in the JAX layout: for the same
+params, the same bytes as the JAX package's `save_model`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import struct
 from pathlib import Path
@@ -20,9 +23,23 @@ from typing import BinaryIO, Dict, Tuple, Union
 
 from vqvdb_tpu_torch.core import msgpack_lite
 from vqvdb_tpu_torch.core.config import ModelConfig
+from vqvdb_tpu_torch.core.weights import params_to_jax
 from vqvdb_tpu_torch.utils.errors import ArtifactError
 
 MAGIC = b"VQMODEL1"
+
+
+def save_model(path: Union[str, Path], params: Dict, cfg: ModelConfig) -> None:
+    """Write the port's params tree (torch tensors, as training makes them)
+    and `cfg` as a `.vqmodel`."""
+    cfg_json = json.dumps(dataclasses.asdict(cfg)).encode("utf-8")
+    params_bytes = msgpack_lite.packb(params_to_jax(params))
+    with open(path, "wb") as f:
+        f.write(MAGIC)
+        f.write(struct.pack("<I", len(cfg_json)))
+        f.write(cfg_json)
+        f.write(struct.pack("<Q", len(params_bytes)))
+        f.write(params_bytes)
 
 
 def _read_exact(f: BinaryIO, n: int, what: str) -> bytes:

@@ -1,12 +1,19 @@
-"""A small msgpack decoder for the subset flax's serializer writes.
+"""A small msgpack codec for the subset flax's serializer writes.
 
 The `.vqmodel` params blob is `flax.serialization.to_bytes` output: nested
 maps of str keys whose leaves are msgpack ext type 1 (an ndarray, itself a
 msgpack array `(shape, dtype_name, raw_bytes)`). The machines that run this
-package carry no `msgpack` package, so this module decodes the format
-itself: maps, arrays, str, bin, nil/bool, ints, floats and ext types 1
-(ndarray) and 3 (numpy scalar). Anything else, a truncated buffer, or
-trailing bytes raise ValueError.
+package carry no `msgpack` package, so this module reads and writes the
+format itself.
+
+`unpackb` decodes maps, arrays, str, bin, nil/bool, ints, floats and ext
+types 1 (ndarray) and 3 (numpy scalar). Anything else, a truncated buffer,
+or trailing bytes raise ValueError.
+
+`packb` encodes what `to_bytes` encodes for a params tree, byte for byte:
+maps in their dicts' key order, each value in msgpack's shortest form
+(msgpack-python's choices with `use_bin_type=True`), Python floats as
+doubles, C-contiguous ndarrays as ext 1 and numpy scalars as ext 3.
 """
 
 from __future__ import annotations
@@ -139,3 +146,93 @@ def unpackb(data: bytes) -> Any:
         raise ValueError(
             f"{len(r.buf) - r.pos} trailing bytes after the msgpack object")
     return obj
+
+
+# flax splits an array above this many bytes into chunks; no params leaf of
+# this package comes near it, so `packb` refuses one rather than chunk it.
+MAX_ARRAY_BYTES = 2**30
+
+
+def _head(out: bytearray, n: int, fix: int, fix_max: int, tags: tuple) -> None:
+    """A length header: the fix form below fix_max, else the first of
+    (tag 8 bit, tag 16 bit, tag 32 bit) that holds n (None: no 8-bit form)."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+    elif tags[0] is not None and n <= 0xFF:
+        out += struct.pack(">BB", tags[0], n)
+    elif n <= 0xFFFF:
+        out += struct.pack(">BH", tags[1], n)
+    else:
+        out += struct.pack(">BI", tags[2], n)
+
+
+def _int(out: bytearray, v: int) -> None:
+    if 0 <= v <= 0x7F or -32 <= v < 0:
+        out += struct.pack(">b" if v < 0 else ">B", v)
+        return
+    forms = ((0xFF, ">BB", 0xCC), (0xFFFF, ">BH", 0xCD),
+             (0xFFFFFFFF, ">BI", 0xCE), (2**64 - 1, ">BQ", 0xCF)) if v > 0 else \
+        ((-2**7, ">Bb", 0xD0), (-2**15, ">Bh", 0xD1), (-2**31, ">Bi", 0xD2),
+         (-2**63, ">Bq", 0xD3))
+    for limit, fmt, tag in forms:
+        if (v <= limit) if v > 0 else (v >= limit):
+            out += struct.pack(fmt, tag, v)
+            return
+    raise ValueError(f"integer {v} does not fit msgpack's 64 bits")
+
+
+def _ext_payload(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError(f"cannot pack an ndarray of dtype {arr.dtype}")
+    if arr.nbytes > MAX_ARRAY_BYTES:
+        raise ValueError(f"ndarray of {arr.nbytes} bytes exceeds {MAX_ARRAY_BYTES}")
+    return packb((list(arr.shape), arr.dtype.name, arr.tobytes("C")))
+
+
+def _encode(out: bytearray, obj: Any) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _int(out, obj)
+    elif isinstance(obj, float):
+        out += struct.pack(">Bd", 0xCB, obj)
+    elif isinstance(obj, str):
+        raw = obj.encode("utf-8")
+        _head(out, len(raw), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += raw
+    elif isinstance(obj, (bytes, bytearray, memoryview)):
+        raw = bytes(obj)
+        _head(out, len(raw), None, -1, (0xC4, 0xC5, 0xC6))
+        out += raw
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 15, (None, 0xDC, 0xDD))
+        for v in obj:
+            _encode(out, v)
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 15, (None, 0xDE, 0xDF))
+        for k, v in obj.items():
+            _encode(out, k)
+            _encode(out, v)
+    elif isinstance(obj, (np.ndarray, np.generic)):
+        payload = _ext_payload(np.asarray(obj))
+        code = EXT_NDARRAY if isinstance(obj, np.ndarray) else EXT_NPSCALAR
+        n = len(payload)
+        fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+        if n in fixext:
+            out.append(fixext[n])
+        else:
+            _head(out, n, None, -1, (0xC7, 0xC8, 0xC9))
+        out += struct.pack(">b", code)
+        out += payload
+    else:
+        raise ValueError(f"cannot pack {type(obj).__name__}")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode `obj` (dicts, lists, tuples, str, bytes, ints, floats, bools,
+    None, ndarrays and numpy scalars) as msgpack."""
+    out = bytearray()
+    _encode(out, obj)
+    return bytes(out)

@@ -5,7 +5,8 @@ The JAX package stores convs as DHWIO `(kd, kh, kw, in, out)`, linears as
 `(K, D)`, or `(S, K, D)` for an S-stage residual-VQ model. The port keeps the same nested-dict tree with torch tensors:
 convs become OIDHW (the reverse of `vqvdb_tpu/core/torch_import.py`'s
 transpose), stored channels-last so cuDNN runs them in NDHWC; every other
-leaf keeps its shape.
+leaf keeps its shape. `params_to_jax` is the way back, for the model
+artifact and the codec.
 """
 
 from __future__ import annotations
@@ -63,3 +64,17 @@ def params_from_jax(tree: Params, cfg: ModelConfig,
         raise ConfigError(
             f"codebook shape {tuple(emb.shape)} != config {want}")
     return out
+
+
+def params_to_jax(node: Any) -> Any:
+    """The port's params tree -> the JAX layout as numpy arrays (convs back
+    to DHWIO, every leaf C-contiguous in its own dtype), keys in the tree's
+    order."""
+    if isinstance(node, dict):
+        out = {}
+        for k, v in node.items():
+            if k == "w" and isinstance(v, torch.Tensor) and v.dim() == 5:
+                v = v.permute(2, 3, 4, 1, 0)
+            out[k] = params_to_jax(v)
+        return out
+    return np.ascontiguousarray(node.detach().cpu().numpy())

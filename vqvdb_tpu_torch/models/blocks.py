@@ -8,17 +8,126 @@ memory (channels-last strides) and weights in OIDHW, also channels-last.
 The rounding places follow the JAX functions: GroupNorm and channel
 attention compute in f32 and cast back to the input dtype; the residual
 scale is rounded to the input dtype before it multiplies.
+
+The initialisers draw the JAX package's distributions (torch's Conv/Linear
+defaults: kaiming-uniform with a = sqrt(5) and a uniform bias; N(0, 1e-3)
+closer convs; ICNR for the pre-shuffle conv) from a `torch.Generator`, on
+its device. JAX's random streams cannot be reproduced, so the values differ
+from the JAX package's for any seed; shapes, dtypes and bounds agree.
 """
 
 from __future__ import annotations
 
 import contextlib
+import math
 from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
 Params = Dict[str, torch.Tensor]
+
+
+# ---------------------------------------------------------------------------
+# Initialisers
+# ---------------------------------------------------------------------------
+
+def _uniform(gen: torch.Generator, shape, bound: float, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=gen.device).uniform_(
+        -bound, bound, generator=gen)
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device=gen.device).normal_(
+        0.0, std, generator=gen)
+
+
+def _kaiming_uniform(gen: torch.Generator, shape, fan_in: int, a: float = math.sqrt(5.0),
+                     dtype=torch.float32) -> torch.Tensor:
+    """torch.nn.init.kaiming_uniform_(a=sqrt(5)): torch's Conv/Linear default."""
+    gain = math.sqrt(2.0 / (1.0 + a * a))
+    return _uniform(gen, shape, gain * math.sqrt(3.0 / fan_in), dtype)
+
+
+def _bias_uniform(gen: torch.Generator, shape, fan_in: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    return _uniform(gen, shape, 1.0 / math.sqrt(fan_in), dtype)
+
+
+def _conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """OIDHW, stored channels-last as `core.weights` stores a loaded conv."""
+    return w.contiguous(memory_format=torch.channels_last_3d)
+
+
+def init_conv3d(gen: torch.Generator, in_ch: int, out_ch: int, kernel: int, *,
+                bias: bool = True, dtype=torch.float32) -> Params:
+    fan_in = in_ch * kernel**3
+    p = {"w": _conv_weight(_kaiming_uniform(
+        gen, (out_ch, in_ch, kernel, kernel, kernel), fan_in, dtype=dtype))}
+    if bias:
+        p["b"] = _bias_uniform(gen, (out_ch,), fan_in, dtype=dtype)
+    return p
+
+
+def init_conv3d_near_zero(gen: torch.Generator, in_ch: int, out_ch: int, kernel: int,
+                          std: float = 1e-3, dtype=torch.float32) -> Params:
+    """Residual-branch closer conv: N(0, std) weights, zero bias."""
+    w = _normal(gen, (out_ch, in_ch, kernel, kernel, kernel), std, dtype)
+    return {"w": _conv_weight(w),
+            "b": torch.zeros((out_ch,), dtype=dtype, device=gen.device)}
+
+
+def init_conv3d_icnr(gen: torch.Generator, in_ch: int, out_ch: int, kernel: int,
+                     upscale: int = 2, dtype=torch.float32) -> Params:
+    """ICNR for the pre-pixel-shuffle conv: out_ch / r^3 kaiming-normal
+    (fan_in) filters, each repeated r^3 times in a row along the output
+    channels, so the shuffled output starts as nearest-neighbour upsampling."""
+    r3 = upscale**3
+    sub = out_ch // r3
+    if sub == 0:
+        raise ValueError("ICNR: out_channels too small.")
+    fan_in = in_ch * kernel**3
+    temp = _normal(gen, (sub, in_ch, kernel, kernel, kernel),
+                   math.sqrt(2.0 / fan_in), dtype)
+    return {"w": _conv_weight(temp.repeat_interleave(r3, dim=0)),
+            "b": _bias_uniform(gen, (out_ch,), fan_in, dtype=dtype)}
+
+
+def init_group_norm(num_ch: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones((num_ch,), dtype=dtype, device=device),
+            "bias": torch.zeros((num_ch,), dtype=dtype, device=device)}
+
+
+def init_linear(gen: torch.Generator, in_f: int, out_f: int, *, bias: bool = True,
+                dtype=torch.float32) -> Params:
+    """A linear layer, weight (in, out) as in the JAX package."""
+    p = {"w": _kaiming_uniform(gen, (in_f, out_f), in_f, dtype=dtype)}
+    if bias:
+        p["b"] = _bias_uniform(gen, (out_f,), in_f, dtype=dtype)
+    return p
+
+
+def init_residual_block(gen: torch.Generator, channels: int, dtype=torch.float32,
+                        kernel2: int = 3) -> Params:
+    return {
+        "gn1": init_group_norm(channels, dtype, gen.device),
+        "conv1": init_conv3d(gen, channels, channels, 3, dtype=dtype),
+        "gn2": init_group_norm(channels, dtype, gen.device),
+        "conv2": init_conv3d_near_zero(gen, channels, channels, kernel2, dtype=dtype),
+    }
+
+
+def init_channel_attention(gen: torch.Generator, channels: int, reduction: int = 4,
+                           dtype=torch.float32) -> Params:
+    return {
+        "fc1": init_linear(gen, channels, channels // reduction, bias=False, dtype=dtype),
+        "fc2": init_linear(gen, channels // reduction, channels, bias=False, dtype=dtype),
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward ops
+# ---------------------------------------------------------------------------
 
 
 def conv3d(params: Params, x: torch.Tensor, *, stride: int = 1,

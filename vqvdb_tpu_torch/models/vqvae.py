@@ -1,4 +1,4 @@
-"""VQ-VAE graphs, inference parts (counterpart of
+"""VQ-VAE graphs and their training half (counterpart of
 `vqvdb_tpu/models/vqvae.py`).
 
 Ported: the packed encoders (`encoder_arch` "packed" and "packed_lite",
@@ -13,22 +13,39 @@ encoder is not ported and raises ConfigError; no committed artifact uses it.
                 conv k3 1->16 GN(4) relu | RB(16) | conv k4 s2 16->32
                 | RB(32) | CA(32) | proj 1x1 32->D
   reference enc, vec3:
-                conv k3 3->32 GN(8) relu | RB(32) | conv k3 s2 32->128
+                conv k3 3->64 GN(8) relu | RB(64) | conv k3 s2 64->128
                 | RB(128) | RB(128) | CA(128) | proj 1x1 128->D
   scalar dec:   conv k3 D->64 GN(8) relu | RB(64) | CA(64)
                 | up_conv k3 64->256 | pixel_shuffle(2) | conv k3 32->1 | sigmoid
   vec3 dec:     conv k3 D->128 GN(8) relu | RB(128) | RB(128) | CA(128)
                 | up_conv k3 128->256 | pixel_shuffle(2) | conv k3 32->3 | tanh
+
+Training: `init_vqvae_params` draws a params tree (encoder / decoder / vq,
+convs OIDHW channels-last, the JAX layout otherwise) from a
+`torch.Generator`; `vqvae_forward` is the training forward with the EMA
+quantizer. Training runs the eager residual block, as the JAX package does:
+the fused-block kernel is an inference path and has no backward.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from vqvdb_tpu_torch.core.config import ModelConfig
 from vqvdb_tpu_torch.models import blocks
+from vqvdb_tpu_torch.models.quantizer import (
+    VQState,
+    init_rvq_state,
+    init_vq_state,
+    reset_dead_codes,
+    rvq_dequantize,
+    rvq_indices,
+    rvq_reset_dead_codes,
+    rvq_train_forward,
+    vq_train_forward,
+)
 from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
 from vqvdb_tpu_torch.ops.packed import space_to_channel
 from vqvdb_tpu_torch.utils.errors import ConfigError
@@ -148,3 +165,122 @@ def decoder_apply(params: Params, z: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """z (B,4,4,4,D) -> reconstruction (B,8,8,8,C) f32."""
     return decoder_tail(params, decoder_pre_tail(params, z, cfg), cfg)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def packed_encoder_width(cfg: ModelConfig) -> int:
+    """Channel width of the packed encoders: 64 scalar, 128 vec3."""
+    return 64 if cfg.variant == "scalar" else 128
+
+
+def _init_encoder(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    b = blocks
+    c = cfg.in_channels
+    if cfg.encoder_arch.startswith("packed"):
+        w = packed_encoder_width(cfg)
+        kernel2 = 1 if cfg.encoder_arch == "packed_lite" else 3
+        return {
+            "stem_conv": b.init_conv3d(gen, c * 8, w, 3, dtype=dtype),
+            "stem_gn": b.init_group_norm(w, dtype, gen.device),
+            "rb": b.init_residual_block(gen, w, dtype, kernel2=kernel2),
+            "attn": b.init_channel_attention(gen, w, dtype=dtype),
+            "proj": b.init_conv3d(gen, w, cfg.embedding_dim, 1, dtype=dtype),
+        }
+    if cfg.variant == "scalar":
+        return {
+            "pre_conv": b.init_conv3d(gen, c, 16, 3, dtype=dtype),
+            "pre_gn": b.init_group_norm(16, dtype, gen.device),
+            "pre_rb": b.init_residual_block(gen, 16, dtype),
+            "down": b.init_conv3d(gen, 16, 32, 4, dtype=dtype),
+            "rb": b.init_residual_block(gen, 32, dtype),
+            "attn": b.init_channel_attention(gen, 32, dtype=dtype),
+            "proj": b.init_conv3d(gen, 32, cfg.embedding_dim, 1, dtype=dtype),
+        }
+    return {
+        "pre_conv": b.init_conv3d(gen, c, 64, 3, dtype=dtype),
+        "pre_gn": b.init_group_norm(64, dtype, gen.device),
+        "pre_rb": b.init_residual_block(gen, 64, dtype),
+        "down": b.init_conv3d(gen, 64, 128, 3, dtype=dtype),
+        "rb1": b.init_residual_block(gen, 128, dtype),
+        "rb2": b.init_residual_block(gen, 128, dtype),
+        "attn": b.init_channel_attention(gen, 128, dtype=dtype),
+        "proj": b.init_conv3d(gen, 128, cfg.embedding_dim, 1, dtype=dtype),
+    }
+
+
+def _init_decoder(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
+    b = blocks
+    w = 64 if cfg.variant == "scalar" else 128
+    out = {
+        "stem_conv": b.init_conv3d(gen, cfg.embedding_dim, w, 3, dtype=dtype),
+        "stem_gn": b.init_group_norm(w, dtype, gen.device),
+    }
+    if cfg.variant == "scalar":
+        out["rb"] = b.init_residual_block(gen, w, dtype)
+    else:
+        out["rb1"] = b.init_residual_block(gen, w, dtype)
+        out["rb2"] = b.init_residual_block(gen, w, dtype)
+    out["attn"] = b.init_channel_attention(gen, w, dtype=dtype)
+    out["up_conv"] = b.init_conv3d_icnr(gen, w, 32 * 8, 3, dtype=dtype)
+    out["final"] = b.init_conv3d(gen, 32, cfg.in_channels, 3, dtype=dtype)
+    return out
+
+
+def init_vqvae_params(gen: torch.Generator, cfg: ModelConfig,
+                      dtype=torch.float32) -> Params:
+    """A params tree {encoder, decoder, vq} drawn from `gen`, on its device,
+    with the JAX package's keys in its order."""
+    check_ported(cfg)
+    enc = _init_encoder(gen, cfg, dtype)
+    dec = _init_decoder(gen, cfg, dtype)
+    if cfg.num_quantizers > 1:
+        vq = init_rvq_state(gen, cfg.num_quantizers, cfg.num_embeddings,
+                            cfg.embedding_dim, dtype)
+    else:
+        vq = init_vq_state(gen, cfg.num_embeddings, cfg.embedding_dim, dtype)
+    return {"encoder": enc, "decoder": dec, "vq": vq._asdict()}
+
+
+# ---------------------------------------------------------------------------
+# Quantizer dispatch and the training forward
+# ---------------------------------------------------------------------------
+
+def quantize_infer(vq: VQState, flat: torch.Tensor, cfg: ModelConfig,
+                   compute_dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """flat latents (N, D) -> (int32 indices (N,) or (N, S), codewords (N, D)
+    in compute_dtype), through the nearest-code and dequantize kernels."""
+    from vqvdb_tpu_torch.ops.quantize import fused_dequantize, fused_nearest_indices
+
+    rows = flat.detach().to(torch.float32).contiguous()
+    if cfg.num_quantizers > 1:
+        idx = rvq_indices(rows, vq.embedding)
+        return idx, rvq_dequantize(idx, vq.embedding.to(compute_dtype))
+    idx = fused_nearest_indices(rows, vq.embedding)
+    return idx, fused_dequantize(idx, vq.embedding.to(compute_dtype))
+
+
+def quantize_train_forward(vq: VQState, z: torch.Tensor, cfg: ModelConfig):
+    """Single-stage EMA or residual-VQ training pass (vq_train_forward's
+    contract)."""
+    fwd = rvq_train_forward if cfg.num_quantizers > 1 else vq_train_forward
+    return fwd(vq, z, cfg.commitment_cost, cfg.ema_decay, cfg.ema_eps)
+
+
+def reset_dead(gen: torch.Generator, vq: VQState, flat_z: torch.Tensor,
+               cfg: ModelConfig, threshold: float = 1.0):
+    """Dead-code reset (per-stage residual inputs for residual VQ)."""
+    fn = rvq_reset_dead_codes if cfg.num_quantizers > 1 else reset_dead_codes
+    return fn(gen, vq, flat_z, threshold)
+
+
+def vqvae_forward(params: Params, x: torch.Tensor, cfg: ModelConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor, VQState, torch.Tensor, torch.Tensor]:
+    """Training forward: (z, recon, new VQState, vq_loss, perplexity)."""
+    z = encoder_apply(params["encoder"], x, cfg)
+    quantized, new_vq, vq_loss, perplexity = quantize_train_forward(
+        VQState(**params["vq"]), z, cfg)
+    recon = decoder_apply(params["decoder"], quantized, cfg)
+    return z, recon, new_vq, vq_loss, perplexity

@@ -170,3 +170,17 @@ def psnr(a: np.ndarray, b: np.ndarray, peak: float = 1.0) -> float:
     if m == 0:
         return float("inf")
     return float(10.0 * np.log10(peak * peak / m))
+
+
+def split_mse(recon: np.ndarray, target: np.ndarray, atol: float = 0.0
+              ) -> Tuple[float, float]:
+    """(zero-voxel MSE, non-zero-voxel MSE), the voxels split on |target| <=
+    atol; 0.0 for an empty side."""
+    target = np.asarray(target, np.float64)
+    recon = np.asarray(recon, np.float64)
+    zero_mask = np.abs(target) <= atol
+    err = (recon - target) ** 2
+    zero_mse = float(err[zero_mask].mean()) if zero_mask.any() else 0.0
+    nz = ~zero_mask
+    nonzero_mse = float(err[nz].mean()) if nz.any() else 0.0
+    return zero_mse, nonzero_mse
