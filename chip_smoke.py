@@ -97,6 +97,25 @@ Phases, in this order; any failure raises and the script exits non-zero:
      the fast path in turns; --profile adds a profiled train step. Then the
      kernel rows nearest_indices_train and dequantize_train at a step's
      shapes.
+ 15. serving and interop: (1) the flagship (batch 4096, bf16) behind
+     `serving.py` on 127.0.0.1:0: 32 client threads x 8 /encode_leaves
+     requests of 256-1024 leaves cut from the field (sizes from --seed) and
+     a malformed one (3 channels) among them, then a /decode_indices request
+     for each answer, counters reset around each window; every answer must
+     equal the codec's encode_leaves / decode_indices of its rows, the
+     malformed request alone fails (400), requests coalesce (steps <
+     requests), one score-argmin launch per encode batch and one dequantize
+     launch per decode batch; an /encode of a 16,384-leaf .npy byte-identical
+     to compress of the service's grid and its /decode equal to decompress;
+     /stats holds the device/dispatch profile; rates and p50 / p99 latency
+     of the same traffic from 32 clients and from one, in turns (concurrent,
+     serial, serial, concurrent). (2) `export-onnx --embed-header` of the
+     flagship and the reference arch, validated on the card (one
+     nearest-code and two dequantize launches each); `export-torch` of the
+     reference arch, its TorchScript decode of 64 index blocks on the card
+     within 1e-5 of decode_from_indices; the Houdini cooks (grids=) on the
+     card byte-identical to api.encode / api.decode. Logs `[serve] {...}`
+     and `[interop] {...}`.
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -1808,6 +1827,305 @@ def train_phase(args, cfg, grid, workdir: Path, dev=None, tcfg=None, cpu_leaves:
     return res, rows
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: serving and interop
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENTS = 32
+SERVE_REQUESTS = 8  # per client
+SERVE_LEAVES = (256, 1024)  # leaves per /encode_leaves request, inclusive
+SERVE_FILE_LEAVES = 16384  # the /encode .npy
+
+
+def _http(addr, method, path, body=None):
+    """One request on its own connection: (status, body bytes)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*addr, timeout=600)
+    try:
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def _npy_bytes(arr) -> bytes:
+    import io
+
+    import numpy as np
+
+    buf = io.BytesIO()
+    np.save(buf, arr)
+    return buf.getvalue()
+
+
+def _traffic(addr, path, bodies, clients: int, stray=None):
+    """POST bodies[c][r] to `path` from `clients` threads (client c sends its
+    row of bodies one after another; with clients=1 one thread sends them
+    all in turn). `stray` is one more (path, body) sent from its own thread
+    while the others are in flight. Returns (answers [c][r] as (status,
+    bytes), per-request latencies in s, wall s, the stray's answer)."""
+    import threading
+
+    if clients == 1:
+        bodies = [[b for row in bodies for b in row]]
+    answers = [[None] * len(row) for row in bodies]
+    lat = [[0.0] * len(row) for row in bodies]
+    stray_answer = []
+    gate = threading.Barrier(len(bodies) + (stray is not None))
+
+    def client(c):
+        gate.wait()
+        for r, body in enumerate(bodies[c]):
+            t0 = time.perf_counter()
+            answers[c][r] = _http(addr, "POST", path, body)
+            lat[c][r] = time.perf_counter() - t0
+
+    def send_stray():
+        gate.wait()
+        time.sleep(0.005)
+        stray_answer.append(_http(addr, "POST", *stray))
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(len(bodies))]
+    if stray is not None:
+        threads.append(threading.Thread(target=send_stray))
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError(f"{path}: a client did not finish")
+    flat = [a for row in answers for a in row]
+    bad = [a for a in flat if a[0] != 200]
+    if bad:
+        raise AssertionError(f"{path}: {len(bad)} requests failed, first {bad[0][0]} "
+                             f"{bad[0][1][:200]!r}")
+    if clients == 1:
+        answers = [flat[i: i + SERVE_REQUESTS] for i in range(0, len(flat), SERVE_REQUESTS)]
+        lat = [lat[0][i: i + SERVE_REQUESTS] for i in range(0, len(flat), SERVE_REQUESTS)]
+    return answers, [x for row in lat for x in row], wall, stray_answer[0] if stray else None
+
+
+def _window_rates(n_requests, n_leaves, lat, wall):
+    import numpy as np
+
+    p50, p99 = np.percentile(np.asarray(lat) * 1e3, [50, 99])
+    return {"requests_per_s": n_requests / wall, "leaves_per_s": n_leaves / wall,
+            "p50_ms": float(p50), "p99_ms": float(p99), "wall_s": wall}
+
+
+def serving_phase(seed: int, grid, workdir: Path, device: str = "cuda"):
+    """Phase 15.1: the flagship served by `serving.py` on 127.0.0.1:0 (batch
+    4096, bf16): 32 clients x 8 /encode_leaves requests of 256-1024 leaves
+    cut from the field, a malformed request among them, then a
+    /decode_indices request for each answer; an /encode of a 16,384-leaf .npy
+    and a /decode of its file; /healthz and /stats. Gates: every answer equals
+    the codec's own call on the same rows; the file is compress's, its decode
+    decompress's; the malformed request alone fails (400); requests coalesce;
+    one score-argmin launch per encode batch and one dequantize launch per
+    decode batch. Then the same traffic from one client, in turns
+    (concurrent, serial, serial, concurrent)."""
+    import io
+    import threading
+
+    import numpy as np
+
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.serving import CodecService, make_server
+
+    codec = api.make_codec(REPO / "models" / "scalar.vqmodel", device=device)
+    service = CodecService(codec)
+    srv = make_server(service, "127.0.0.1", 0)
+    server_thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    server_thread.start()
+    addr = srv.server_address
+    rng = np.random.default_rng(seed + 15)
+    sizes = rng.integers(SERVE_LEAVES[0], SERVE_LEAVES[1] + 1, (SERVE_CLIENTS, SERVE_REQUESTS))
+    starts = rng.integers(0, grid.num_leaves - SERVE_LEAVES[1], sizes.shape)
+    rows = [[grid.leaves[a: a + n] for a, n in zip(sa, sn)] for sa, sn in zip(starts, sizes)]
+    enc_bodies = [[_npy_bytes(x) for x in row] for row in rows]
+    n_req, n_leaves = sizes.size, int(sizes.sum())
+    malformed = ("/encode_leaves", _npy_bytes(np.zeros((300, 8, 8, 8, 3), np.float32)))
+    out = {"clients": SERVE_CLIENTS, "requests_per_client": SERVE_REQUESTS,
+           "leaves_per_request": list(SERVE_LEAVES), "requests": n_req, "leaves": n_leaves}
+
+    def counts():
+        mb = service.stats()["microbatch"]
+        return (codec.profiler.report().get("device/dispatch", {}).get("count", 0),
+                mb["encode"]["steps"], mb["encode"]["coalesced"],
+                mb["decode"]["steps"], mb["decode"]["coalesced"])
+
+    def window(path, bodies, clients, stray=None):
+        before = counts()
+        reset_launches()
+        answers, lat, wall, stray_answer = _traffic(addr, path, bodies, clients, stray)
+        launches = read_launches()
+        after = counts()
+        side = 1 if path == "/encode_leaves" else 3
+        info = {"device_batches": after[0] - before[0], "steps": after[side] - before[side],
+                "coalesced": after[side + 1] - before[side + 1], "launches": launches,
+                **_window_rates(n_req, n_leaves, lat, wall)}
+        return answers, info, stray_answer
+
+    try:
+        status, body = _http(addr, "GET", "/healthz")
+        out["healthz"] = json.loads(body)
+        if status != 200 or out["healthz"]["status"] != "ok":
+            raise AssertionError(f"/healthz: {status} {body!r}")
+        errors0 = service.stats()["counters"]["errors"]
+        turns = {"concurrent": [], "serial": []}
+        for turn_no, turn in enumerate(("concurrent", "serial", "serial", "concurrent")):
+            clients = SERVE_CLIENTS if turn == "concurrent" else 1
+            gated = turn_no == 0
+            enc, enc_info, stray = window("/encode_leaves", enc_bodies, clients,
+                                          malformed if gated else None)
+            dec_bodies = [[_npy_bytes(np.load(io.BytesIO(a[1]))) for a in row] for row in enc]
+            dec, dec_info, _ = window("/decode_indices", dec_bodies, clients)
+            turns[turn].append({"encode": enc_info, "decode": dec_info})
+            if not gated:
+                continue
+            # 15.1 gates: the served rows are the codec's rows.
+            with service.lock:
+                for c in range(SERVE_CLIENTS):
+                    for r in range(SERVE_REQUESTS):
+                        idx = np.load(io.BytesIO(enc[c][r][1]))
+                        if not np.array_equal(idx, codec.encode_leaves(rows[c][r])):
+                            raise AssertionError(f"/encode_leaves answer {c},{r} differs "
+                                                 "from codec.encode_leaves of its rows")
+                        leaves = np.load(io.BytesIO(dec[c][r][1]))
+                        if not np.array_equal(leaves, codec.decode_indices(idx)):
+                            raise AssertionError(f"/decode_indices answer {c},{r} differs "
+                                                 "from codec.decode_indices")
+            if stray[0] != 400 or "expected leaves" not in json.loads(stray[1])["error"]:
+                raise AssertionError(f"malformed request: {stray[0]} {stray[1][:200]!r}")
+            errors = service.stats()["counters"]["errors"] - errors0
+            if errors != 1:
+                raise AssertionError(f"{errors} requests failed; only the malformed one may")
+            out["malformed"] = {"status": stray[0], "error": json.loads(stray[1])["error"]}
+            for name, info, kernel in (("encode", enc_info, "score_argmin"),
+                                       ("decode", dec_info, "dequantize")):
+                expect_launches(f"served {name}", info["launches"],
+                                **{kernel: info["device_batches"]})
+                if info["device_batches"] < 1 or not (info["coalesced"] > 0
+                                                      and info["steps"] < n_req):
+                    raise AssertionError(f"served {name}: no coalescing: {info}")
+        out["turns"] = turns
+
+        # /encode of a .npy leaf array and /decode of the file it returns.
+        raw = _npy_bytes(grid.leaves[:SERVE_FILE_LEAVES])
+        status, vq = _http(addr, "POST", "/encode?name=density", raw)
+        if status != 200:
+            raise AssertionError(f"/encode: {status} {vq[:200]!r}")
+        status, npz = _http(addr, "POST", "/decode", vq)
+        if status != 200:
+            raise AssertionError(f"/decode: {status} {npz[:200]!r}")
+        path = workdir / "served.vqvdb"
+        with service.lock:
+            codec.compress(service.grid_of_npy(raw, "density"), path)
+            if path.read_bytes() != vq:
+                raise AssertionError("/encode bytes differ from codec.compress of its grid")
+            (ref,), _ = codec.decompress(path)
+        got = np.load(io.BytesIO(npz))
+        if not (np.array_equal(got["density_leaves"], ref.leaves)
+                and np.array_equal(got["density_origins"], ref.origins)):
+            raise AssertionError("/decode differs from codec.decompress of the file")
+        out["file"] = {"leaves": SERVE_FILE_LEAVES, "bytes": len(vq), "byte_identical": True,
+                       "decode_equal": True}
+        stats = json.loads(_http(addr, "GET", "/stats")[1])
+        if "device/dispatch" not in stats["profile"]:
+            raise AssertionError("/stats holds no device/dispatch profile")
+        out["stats"] = {"counters": stats["counters"], "microbatch": stats["microbatch"],
+                        "profile": stats["profile"]}
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        server_thread.join(60)
+        service.close()
+    return out
+
+
+def interop_phase(grid, workdir: Path, device: str = "cuda"):
+    """Phase 15.2: `export-onnx` (validated on the card, --embed-header) of
+    the flagship and of the reference arch; `export-torch` of the reference
+    arch (the packed flagship has no reference module tree, in either
+    package), its TorchScript decode of 64 index blocks on the card against
+    decode_from_indices; the Houdini cooks with grids= on the card, their
+    file api.encode's and their grids api.decode's."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.weights import params_from_jax
+    from vqvdb_tpu_torch.integrations import houdini
+    from vqvdb_tpu_torch.models.blocks import no_tf32
+    from vqvdb_tpu_torch.models.vqvae import decode_from_indices, encode_to_indices
+
+    out = {}
+    dev_flag = ["--device", device]
+    for name in ("scalar", "scalar_reference"):
+        d = workdir / f"onnx_{name}"
+        reset_launches()
+        rc, res = _cli(["export-onnx", REPO / "models" / f"{name}.vqmodel", d,
+                        "--embed-header", d / "bin_onnx.h", *dev_flag])
+        launches = read_launches()
+        if rc != 0 or not res or not res.get("valid"):
+            raise AssertionError(f"export-onnx {name}: exit {rc}, {res}")
+        expect_launches(f"export-onnx {name} validation", launches,
+                        nearest_indices=1, dequantize=2)
+        out[f"export_onnx_{name}"] = {
+            "valid": res["valid"], "encoder_index_agreement": res["encoder_index_agreement"],
+            "decoder_max_abs_err": res["decoder_max_abs_err"], "launches": launches,
+            "bytes": {k: Path(res[k]).stat().st_size
+                      for k in ("encoder", "decoder", "embed_header")}}
+
+    ref_model = REPO / "models" / "scalar_reference.vqmodel"
+    d = workdir / "torch_ref"
+    rc, res = _cli(["export-torch", ref_model, "--checkpoint", d / "ref.pth",
+                    "--torchscript", d / "ref.pt", *dev_flag])
+    if rc != 0:
+        raise AssertionError(f"export-torch: exit {rc}")
+    dev = torch.device(device)
+    tree, cfg = load_model(ref_model)
+    params = params_from_jax(tree, cfg, dev)
+    module = torch.jit.load(str(d / "ref.pt"), map_location=dev)
+    x = torch.from_numpy(np.ascontiguousarray(grid.leaves[:64])).to(dev)
+    with torch.no_grad(), no_tf32(dev):
+        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            idx = encode_to_indices(params, x, cfg)
+            scripted = module.decode(idx.long()).permute(0, 2, 3, 4, 1)
+            mine = decode_from_indices(params, idx, cfg)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    err = float((scripted - mine).abs().max())
+    if not err < 1e-5:
+        raise AssertionError(f"TorchScript decode vs decode_from_indices: {err:.3e} >= 1e-5")
+    sd = torch.load(d / "ref.pth", weights_only=True)["state_dict"]
+    out["export_torch"] = {"state_dict_tensors": len(sd), "torchscript_decode_max_abs_err": err,
+                           "blocks": 64}
+
+    model = REPO / "models" / "scalar.vqmodel"
+    sub = grid_subset(grid, SERVE_FILE_LEAVES)
+    cooked, direct = workdir / "cook.vqvdb", workdir / "api.vqvdb"
+    stats = houdini.cook_encoder(outputpath=str(cooked), model=str(model), grids=[sub],
+                                 device=device)
+    api.encode(sub, model, direct, device=device)
+    if cooked.read_bytes() != direct.read_bytes():
+        raise AssertionError("cook_encoder's file differs from api.encode's")
+    (got,) = houdini.cook_decoder(inputfile=str(cooked), model=str(model), device=device)
+    (want,), _ = api.decode(cooked, model, device=device)
+    if not (np.array_equal(got.leaves, want.leaves) and np.array_equal(got.origins, want.origins)):
+        raise AssertionError("cook_decoder's grid differs from api.decode's")
+    out["houdini"] = {"leaves": stats["leaves"], "bytes": cooked.stat().st_size,
+                      "byte_identical": True, "decode_equal": True}
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1914,6 +2232,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         train_res, train_rows = train_phase(args, cfg, grid, Path(tmp))
         kernels += log_kernel_rows(train_rows)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        log(f"[serve] {json.dumps(serving_phase(args.seed, grid, Path(tmp)))}")
+        log(f"[interop] {json.dumps(interop_phase(grid, Path(tmp)))}")
+        log(f"[phase15] {time.perf_counter() - t0:.1f} s")
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.

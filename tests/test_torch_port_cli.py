@@ -6,15 +6,18 @@ Both CLIs run in-process on the same inputs with `--compute-dtype float32`
 except in the index bytes of near-tie rows (best and runner-up JAX scores
 within 1e-5 relative: the flagship holds near-duplicate codes); `info`,
 `verify`, `transcode` and `vdbinfo` must print the same JSON; usage errors
-exit 2 in both; the subcommands not ported yet exit 2 naming the ROADMAP.md
-item that brings them (train, datagen and eval: test_torch_port_eval.py). The port's encode / decode JSON has the JAX keys and
-`host_seconds`.
+exit 2 in both; `serve`, `import-torch`, `export-checkpoint`, `export-torch`
+and `export-onnx` answer, write and exit as the JAX CLI's (train, datagen
+and eval: test_torch_port_eval.py); --data-parallel exits 2 naming the
+ROADMAP.md item that brings it. The port's encode / decode JSON has the JAX
+keys and `host_seconds`.
 """
 
 import json
 import uuid
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -36,6 +39,7 @@ from vqvdb_tpu_torch.vdb.openvdb_io import read_vdb_leafgrids, write_vdb_leafgri
 torch.set_num_threads(2)
 
 MODEL = Path(__file__).parent.parent / "models" / "scalar.vqmodel"
+REF_MODEL = MODEL.parent / "scalar_reference.vqmodel"
 NEAR_TIE = 1e-5
 CPU = ["--device", "cpu"]
 F32 = ["--batch-size", "64", "--compute-dtype", "float32"]
@@ -272,14 +276,180 @@ def test_usage_errors_exit_as_jax(tmp_path, capsys, argv):
     assert rc == jrc and rc in (1, 2)
 
 
-@pytest.mark.parametrize("cmd,item", [("serve", "item 14"),
-                                      ("import-torch", "item 14"),
-                                      ("export-checkpoint", "item 14"),
-                                      ("export-torch", "item 14"), ("export-onnx", "item 14")])
-def test_not_ported_subcommands_exit_2_naming_the_item(capsys, cmd, item):
-    rc = cli([cmd, "--data-dir", "x", "whatever"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "ROADMAP.md" in err and item in err
+@pytest.fixture
+def fast_jax_load(monkeypatch):
+    """The JAX loader draws a template tree for the params' structure; the
+    jitted initialiser draws it in one program instead of op by op."""
+    from vqvdb_tpu.core import artifact as jartifact
+
+    monkeypatch.setattr(jartifact, "init_vqvae_params",
+                        jax.jit(jartifact.init_vqvae_params, static_argnums=1))
+
+
+def _ref_scores(leaves):
+    """JAX nearest-code scores [N*64, K] of the reference arch's latents."""
+    from vqvdb_tpu.models.vqvae import encoder_apply
+
+    jparams, jcfg = jax_load_model(REF_MODEL)
+    z = np.asarray(encoder_apply(jparams.encoder, jnp.asarray(leaves), jcfg)).reshape(-1, 128)
+    e = np.asarray(jparams.vq.embedding)
+    return (e * e).sum(1)[None] - 2.0 * z @ e.T
+
+
+def test_serve_answers_as_the_jax_cli_serve(monkeypatch, capsys, fast_jax_load):
+    """`serve --port 0` of both CLIs, each in a thread and torn down by the
+    test: the same /healthz, /encode_leaves indices off near-ties, and both
+    return 0 once their server shuts down."""
+    import http.client
+    import io
+    import threading
+    import time
+
+    from vqvdb_tpu import serving as jserving
+    from vqvdb_tpu_torch import serving
+
+    servers = {}
+    for key, module in (("ours", serving), ("theirs", jserving)):
+        def make(service, host, port, real=module.make_server, key=key):
+            srv = real(service, host, port)
+            servers[key] = srv
+            return srv
+
+        monkeypatch.setattr(module, "make_server", make)
+    argv = ["serve", "--model", str(REF_MODEL), "--port", "0", *F32]
+    rcs = {}
+    threads = [threading.Thread(target=lambda: rcs.__setitem__("ours", cli(argv + CPU))),
+               threading.Thread(target=lambda: rcs.__setitem__("theirs", jax_cli(argv)))]
+    for t in threads:
+        t.start()
+    deadline = time.time() + 240
+    while len(servers) < 2 and time.time() < deadline and all(t.is_alive() for t in threads):
+        time.sleep(0.05)
+    assert len(servers) == 2, "a server did not start"
+
+    def request(key, method, path, body=None):
+        conn = http.client.HTTPConnection(*servers[key].server_address, timeout=120)
+        conn.request(method, path, body=body)
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        return resp.status, data
+
+    try:
+        (s1, a), (s2, b) = request("ours", "GET", "/healthz"), request("theirs", "GET", "/healthz")
+        assert s1 == s2 == 200 and json.loads(a) == json.loads(b)
+        leaves = np.random.default_rng(3).random((5, 8, 8, 8, 1), np.float32)
+        buf = io.BytesIO()
+        np.save(buf, leaves)
+        (s1, a), (s2, b) = (request("ours", "POST", "/encode_leaves", buf.getvalue()),
+                            request("theirs", "POST", "/encode_leaves", buf.getvalue()))
+        assert s1 == s2 == 200
+        got, want = np.load(io.BytesIO(a)), np.load(io.BytesIO(b))
+        assert got.shape == want.shape == (5, 4, 4, 4) and got.dtype == want.dtype
+        bad = (got != want).reshape(-1)
+        two = np.sort(_ref_scores(leaves), axis=1)[:, :2]
+        assert not (bad & ~((two[:, 1] - two[:, 0]) < NEAR_TIE * np.abs(two[:, 0]))).any()
+    finally:
+        for srv in servers.values():
+            srv.shutdown()
+        for t in threads:
+            t.join(60)
+    assert not any(t.is_alive() for t in threads) and rcs == {"ours": 0, "theirs": 0}
+    out = capsys.readouterr().out
+    assert out.count("[serve] listening on http://127.0.0.1:") == 2
+    port = servers["ours"].server_address[1]
+    assert f"127.0.0.1:{port} (model: " in out
+
+
+def test_import_torch_writes_the_jax_clis_vqmodel(tmp_path, capsys, fast_jax_load):
+    from vqvdb_tpu.interop.torch_export import save_reference_checkpoint
+
+    jparams, jcfg = jax_load_model(REF_MODEL)
+    pth = tmp_path / "ref.pth"
+    save_reference_checkpoint(pth, jparams, jcfg)
+    rc, ours = _run(cli, ["import-torch", pth, tmp_path / "a.vqmodel", *CPU], capsys)
+    jrc, theirs = _run(jax_cli, ["import-torch", pth, tmp_path / "b.vqmodel"], capsys)
+    assert rc == jrc == 0 and ours["imported"] == theirs["imported"] == str(pth)
+    assert (tmp_path / "a.vqmodel").read_bytes() == (tmp_path / "b.vqmodel").read_bytes()
+
+
+def test_export_checkpoint_exits_as_the_jax_cli(tmp_path, capsys):
+    """Both CLIs exit 2 with the same message on a directory without
+    checkpoints; the port exports its own checkpoint's params (the
+    training-run case: tests/test_torch_port_interop.py)."""
+    from vqvdb_tpu_torch.core.artifact import save_model
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
+    from vqvdb_tpu_torch.train.train import TrainConfig, make_train_state
+
+    flags = ["--embedding-dim", "16", "--num-embeddings", "32"]
+    for extra, msg in (([], "no checkpoints in"), (["--best"], "no best/ checkpoint in")):
+        (tmp_path / "empty").mkdir(exist_ok=True)
+        argv = [str(a) for a in ["export-checkpoint", tmp_path / "empty",
+                                 tmp_path / "o.vqmodel", *flags, *extra]]
+        rc = cli(argv + CPU)
+        err = capsys.readouterr().err
+        jrc = jax_cli(argv)
+        assert rc == jrc == 2 and err == capsys.readouterr().err and msg in err
+    cfg = ModelConfig(embedding_dim=16, num_embeddings=32)
+    state = make_train_state(cfg, TrainConfig(seed=3), 1, device="cpu")
+    CheckpointManager(tmp_path / "ck").save(7, state)
+    rc, out = _run(cli, ["export-checkpoint", tmp_path / "ck", tmp_path / "p.vqmodel",
+                         "--step", "7", *flags, *CPU], capsys)
+    assert rc == 0 and out == {"checkpoint_step": 7, "best": False,
+                               "model": str(tmp_path / "p.vqmodel")}
+    save_model(tmp_path / "direct.vqmodel", state.params, cfg)
+    assert (tmp_path / "p.vqmodel").read_bytes() == (tmp_path / "direct.vqmodel").read_bytes()
+
+
+def test_export_torch_matches_the_jax_cli(tmp_path, capsys, fast_jax_load):
+    out = {}
+    for key, main, extra in (("ours", cli, CPU), ("theirs", jax_cli, [])):
+        d = tmp_path / key
+        rc, out[key] = _run(main, ["export-torch", REF_MODEL, "--checkpoint", d / "ref.pth",
+                                   "--torchscript", d / "ref.pt", *extra], capsys)
+        assert rc == 0
+        rc, _ = _run(main, ["export-torch", REF_MODEL, *extra], capsys)
+        assert rc == 2
+    assert out["ours"].keys() == out["theirs"].keys() == {"checkpoint", "torchscript"}
+    a = torch.load(tmp_path / "ours" / "ref.pth", weights_only=True)
+    b = torch.load(tmp_path / "theirs" / "ref.pth", weights_only=True)
+    assert a["epoch"] == b["epoch"] and list(a["state_dict"]) == list(b["state_dict"])
+    for k, v in a["state_dict"].items():
+        assert torch.equal(v, b["state_dict"][k]), k
+    x = torch.from_numpy(np.random.default_rng(4).random((3, 1, 8, 8, 8), np.float32))
+    ma, mb = (torch.jit.load(str(tmp_path / k / "ref.pt")) for k in ("ours", "theirs"))
+    with torch.no_grad():
+        ia, ib = ma.encode(x), mb.encode(x)
+        assert torch.equal(ia, ib) and torch.equal(ma.decode(ia), mb.decode(ib))
+    # The packed flagship has no reference module tree: both refuse it.
+    for main, extra in ((cli, CPU), (jax_cli, [])):
+        with pytest.raises(ValueError, match="reference module tree"):
+            main(["export-torch", str(MODEL), "--checkpoint", str(tmp_path / "x.pth"), *extra])
+
+
+def test_export_onnx_matches_the_jax_cli(tmp_path, capsys, fast_jax_load):
+    """Byte-identical encoder.onnx, decoder.onnx and embed header; both
+    validations pass the JAX rule (index agreement 1.0, decoder error under
+    1e-5); a residual-VQ model exits 1 in both."""
+    out = {}
+    for key, main, extra in (("ours", cli, CPU), ("theirs", jax_cli, [])):
+        d = tmp_path / key
+        rc, out[key] = _run(main, ["export-onnx", REF_MODEL, d, "--embed-header",
+                                   d / "bin_onnx.h", *extra], capsys)
+        assert rc == 0, out[key]
+    for name in ("encoder.onnx", "decoder.onnx", "bin_onnx.h"):
+        assert (tmp_path / "ours" / name).read_bytes() == \
+            (tmp_path / "theirs" / name).read_bytes(), name
+    ours, theirs = out["ours"], out["theirs"]
+    assert ours.keys() == theirs.keys()
+    assert ours["valid"] is theirs["valid"] is True
+    assert ours["encoder_index_agreement"] == theirs["encoder_index_agreement"] == 1.0
+    assert ours["decoder_max_abs_err"] < 1e-5
+    rvq = MODEL.parent / "scalar_rvq2.vqmodel"
+    for main, extra in ((cli, CPU), (jax_cli, [])):
+        rc = main(["export-onnx", str(rvq), str(tmp_path / "rvq"), "--no-validate", *extra])
+        assert rc == 1 and "residual-VQ" in capsys.readouterr().err
 
 
 def test_data_parallel_exits_2(tmp_path, capsys):
@@ -339,3 +509,26 @@ def test_bench_runs_the_ports_round_trip(capsys):
     assert out["psnr_db"] > 30.0 and out["compress_leaves_per_s"] > 0
     assert set(out["host_seconds"]) == {"quantize_residual", "write_frames", "read_frames",
                                         "apply_residual"}
+
+
+@pytest.mark.parametrize("setting", ["", "dir", "off"], ids=["default", "path", "off"])
+def test_compile_cache_chooses_the_kernel_build_dir(tmp_path, monkeypatch, setting):
+    """VQVDB_COMPILE_CACHE: unset -> vqvdb_tpu_torch/_build/, a path -> that
+    path, off -> None and a fresh temporary directory; the kernels and the
+    native LZ4 library are built into the chosen directory."""
+    from vqvdb_tpu_torch.ops import build
+    from vqvdb_tpu_torch.runtime import native_io
+    from vqvdb_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+    monkeypatch.setattr(build, "BUILD_DIR", build.BUILD_DIR)  # restored afterwards
+    value = str(tmp_path / "cache") if setting == "dir" else setting
+    monkeypatch.setenv("VQVDB_COMPILE_CACHE", value)
+    got = enable_persistent_cache()
+    if setting == "off":
+        assert got is None and build.BUILD_DIR.is_dir()
+        assert build.BUILD_DIR != build.PKG_DIR / "_build"
+    else:
+        want = Path(value) if value else build.PKG_DIR / "_build"
+        assert got == str(want) and build.BUILD_DIR == want
+    assert build._target("dequantize").parent == build.BUILD_DIR
+    assert native_io._target().parent == build.BUILD_DIR

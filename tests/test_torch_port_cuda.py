@@ -560,3 +560,133 @@ def test_card_train_step_matches_cpu(rng, arch):
         diff = (a.cpu().double() - b.double()).abs()
         assert diff.max() <= 2 * lr and (diff > 1e-2 * lr).double().mean() <= 0.01
     assert s_card.params["encoder"]["proj"]["w"].device.type == "cuda"
+
+
+_MODELS = __import__("pathlib").Path(__file__).resolve().parent.parent / "models"
+
+
+@pytest.mark.cuda
+def test_card_microbatcher_matches_the_codec(rng):
+    """The flagship served on the card: 12 concurrent /encode_leaves
+    requests, then /decode_indices of each answer, every answer equal to the
+    codec's own encode_leaves / decode_indices of the same rows, the kernels
+    launched once per device batch."""
+    import http.client
+    import io
+    import threading
+
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.serving import CodecService, make_server
+
+    _card()
+    codec = api.make_codec(_MODELS / "scalar.vqmodel", batch_size=1024, device="cuda")
+    service = CodecService(codec)
+    srv = make_server(service, "127.0.0.1", 0)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    chunks = [rng.random((int(n), 8, 8, 8, 1), np.float32) for n in rng.integers(50, 400, 12)]
+
+    def post(path, arr):
+        buf = io.BytesIO()
+        np.save(buf, arr)
+        conn = http.client.HTTPConnection(*srv.server_address, timeout=120)
+        conn.request("POST", path, body=buf.getvalue())
+        resp = conn.getresponse()
+        data = resp.read()
+        conn.close()
+        assert resp.status == 200, data
+        return np.load(io.BytesIO(data))
+
+    try:
+        for path, inputs in (("/encode_leaves", chunks), ("/decode_indices", None)):
+            inputs = inputs if inputs is not None else answers
+            before = (q.fused_score_argmin.launches, q.fused_dequantize.launches,
+                      codec.profiler.report().get("device/dispatch", {}).get("count", 0))
+            answers = [None] * len(inputs)
+            threads = [threading.Thread(target=lambda i=i: answers.__setitem__(
+                i, post(path, inputs[i]))) for i in range(len(inputs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(120)
+            batches = codec.profiler.report()["device/dispatch"]["count"] - before[2]
+            score, deq = (q.fused_score_argmin.launches - before[0],
+                          q.fused_dequantize.launches - before[1])
+            assert (score, deq) == ((batches, 0) if path == "/encode_leaves" else (0, batches))
+            for x, got in zip(inputs, answers):
+                want = (codec.encode_leaves(x) if path == "/encode_leaves"
+                        else codec.decode_indices(x))
+                assert np.array_equal(got, want), path
+        stats = service.stats()["microbatch"]
+        assert stats["encode"]["steps"] + stats["encode"]["coalesced"] == len(chunks)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        service.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scalar", "scalar_reference", "scalar_rvq2"])
+def test_card_encode_decode_indices_match_cpu(rng, name):
+    """encode_to_indices / decode_from_indices of a shipped model on the card
+    (f32, TF32 off) against their CPU run: indices equal except on near-tie
+    rows of f64 scores (residual VQ: a row may first differ at a near-tie of
+    that stage), leaves of the same indices within 1e-4."""
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.weights import params_from_jax
+    from vqvdb_tpu_torch.models.blocks import no_tf32
+    from vqvdb_tpu_torch.models.vqvae import decode_from_indices, encode_to_indices, encoder_apply
+
+    dev = _card()
+    tree, cfg = load_model(_MODELS / f"{name}.vqmodel")
+    card, cpu = params_from_jax(tree, cfg, dev), params_from_jax(tree, cfg, "cpu")
+    x = torch.from_numpy(rng.random((64, 8, 8, 8, 1), np.float32))
+    before = (q.fused_nearest_indices.launches, q.fused_dequantize.launches)
+    with torch.no_grad(), no_tf32(dev):
+        matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            got = encode_to_indices(card, x.to(dev), cfg).cpu()
+            rec = decode_from_indices(card, got.to(dev), cfg).cpu()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+        want = encode_to_indices(cpu, x, cfg)
+        ref = decode_from_indices(cpu, got, cfg)
+        z = encoder_apply(cpu["encoder"], x, cfg).reshape(-1, cfg.embedding_dim)
+    # encode: S nearest-code launches, S dequantize launches for the codewords
+    # (and S more between residual-VQ stages); decode: S dequantize launches
+    stages = cfg.num_quantizers
+    deq = 2 * stages + (stages if stages > 1 else 0)
+    assert (q.fused_nearest_indices.launches - before[0],
+            q.fused_dequantize.launches - before[1]) == (stages, deq)
+    books = cpu["vq"]["embedding"].reshape(stages, cfg.num_embeddings, -1).double()
+    g, w = got.reshape(-1, stages).long(), want.reshape(-1, stages).long()
+    res, same = z.double(), torch.ones(g.shape[0], dtype=torch.bool)
+    for s in range(stages):
+        e = books[s]
+        d = (e * e).sum(1)[None, :] - 2.0 * res @ e.T
+        two = d.topk(2, dim=1, largest=False).values
+        tie = (two[:, 1] - two[:, 0]) < 1e-5 * two[:, 0].abs().clamp(min=1.0)
+        assert not (same & (g[:, s] != w[:, s]) & ~tie).any(), f"stage {s}"
+        same &= g[:, s] == w[:, s]
+        res = res - e[w[:, s]]
+    torch.testing.assert_close(rec, ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scalar", "scalar_reference"])
+def test_card_export_onnx_validates(tmp_path, capsys, name):
+    """`export-onnx` with validation on the card: the ONNX graphs (numpy
+    evaluator) against encode_to_indices / decode_from_indices on the card in
+    f32 with TF32 off, by the JAX CLI's rule."""
+    import json
+
+    from vqvdb_tpu_torch.cli import main
+
+    _card()
+    before = (q.fused_nearest_indices.launches, q.fused_dequantize.launches)
+    rc = main(["export-onnx", str(_MODELS / f"{name}.vqmodel"), str(tmp_path),
+               "--device", "cuda"])
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and out["valid"] is True, out
+    assert q.fused_nearest_indices.launches - before[0] == 1
+    assert q.fused_dequantize.launches - before[1] == 2

@@ -38,6 +38,12 @@ def test_every_port_module_imports_without_jax():
                  "vqvdb_tpu_torch.train.train", "vqvdb_tpu_torch.train.fast",
                  "vqvdb_tpu_torch.train.data", "vqvdb_tpu_torch.train.synthetic",
                  "vqvdb_tpu_torch.train.checkpoint", "vqvdb_tpu_torch.eval.metrics",
-                 "vqvdb_tpu_torch.eval.report"):
+                 "vqvdb_tpu_torch.eval.report", "vqvdb_tpu_torch.serving",
+                 "vqvdb_tpu_torch.utils.profiler", "vqvdb_tpu_torch.utils.compile_cache",
+                 "vqvdb_tpu_torch.core.torch_import", "vqvdb_tpu_torch.interop",
+                 "vqvdb_tpu_torch.interop.torch_module", "vqvdb_tpu_torch.interop.torch_export",
+                 "vqvdb_tpu_torch.interop.onnx_proto", "vqvdb_tpu_torch.interop.onnx_export",
+                 "vqvdb_tpu_torch.interop.onnx_eval", "vqvdb_tpu_torch.interop.embed",
+                 "vqvdb_tpu_torch.integrations.houdini"):
         assert want in names
     assert leaked == "LEAKED []"

@@ -1,6 +1,6 @@
 """Command-line interface (counterpart of `vqvdb_tpu/cli.py`): train /
 datagen / eval / encode / decode / info / verify / transcode / sequences /
-OpenVDB tools / bench.
+OpenVDB tools / bench / serve / torch and ONNX import and export.
 
     python -m vqvdb_tpu_torch.cli datagen data/ --volumes 8
     python -m vqvdb_tpu_torch.cli train --data-dir data/ --model-path out/m.vqmodel
@@ -9,15 +9,20 @@ OpenVDB tools / bench.
     python -m vqvdb_tpu_torch.cli decode scene.vqvdb recon.vdb --model m.vqmodel
     python -m vqvdb_tpu_torch.cli info scene.vqvdb
     python -m vqvdb_tpu_torch.cli bench --model models/scalar.vqmodel
+    python -m vqvdb_tpu_torch.cli serve --model m.vqmodel --port 8990
+    python -m vqvdb_tpu_torch.cli export-onnx m.vqmodel onnx/ --embed-header onnx/bin_onnx.h
+    python -m vqvdb_tpu_torch.cli import-torch ref.pth m.vqmodel
 
-Every subcommand that runs a model takes `--device` (default `cuda`; `cpu`
-runs the kernels' plain versions). Output is one JSON object, with the JAX
+Every subcommand that runs a model or places its weights takes `--device`
+(default `cuda`; `cpu` runs the kernels' plain versions). The kernels are
+built into the directory `utils/compile_cache.py` chooses
+(VQVDB_COMPILE_CACHE). Output is one JSON object, with the JAX
 CLI's keys and, where the codec reports it, `host_seconds`; `train` logs its
 epochs and writes the model, its `.history.json` and checkpoints (the
 port's own format, train/checkpoint.py). Exit codes are the JAX CLI's: 0
 done, 1 a file or model error, 2 a usage error, 130 an encode stopped by
-^C. Not ported yet, exiting 2 with the ROADMAP.md item that brings them:
-serve and the import / export commands (item 14), --data-parallel (item 13).
+^C; `export-onnx` exits 3 when its graphs fail validation. Not ported yet,
+exiting 2 with the ROADMAP.md item that brings it: --data-parallel (item 13).
 """
 
 from __future__ import annotations
@@ -33,14 +38,6 @@ import numpy as np
 from vqvdb_tpu_torch.utils.errors import VqvdbError
 
 REPO_MODELS = Path(__file__).resolve().parent.parent / "models"
-
-NOT_PORTED = {
-    "serve": "Queue 1 item 14 (serving)",
-    "import-torch": "Queue 1 item 14 (interop)",
-    "export-checkpoint": "Queue 1 item 14 (interop)",
-    "export-torch": "Queue 1 item 14 (interop)",
-    "export-onnx": "Queue 1 item 14 (interop)",
-}
 
 
 def _error(msg: str) -> int:
@@ -509,9 +506,150 @@ def _cmd_eval(args) -> int:
     return 0
 
 
-def _codec_options(p) -> None:
+def _cmd_serve(args) -> int:
+    """Run the codec as an HTTP service (serving.py)."""
+    from vqvdb_tpu_torch.serving import serve
+
+    serve(_make_codec(args), host=args.host, port=args.port)
+    return 0
+
+
+def _cmd_import_torch(args) -> int:
+    """Convert a reference torch checkpoint (.pth) to a .vqmodel artifact."""
+    from vqvdb_tpu_torch.core.artifact import save_model
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.core.torch_import import import_torch_checkpoint
+    from vqvdb_tpu_torch.core.weights import params_from_jax
+
+    cfg = ModelConfig(in_channels=args.in_channels, embedding_dim=args.embedding_dim,
+                      num_embeddings=args.num_embeddings)
+    params = params_from_jax(import_torch_checkpoint(args.checkpoint, cfg), cfg, args.device)
+    Path(args.output).parent.mkdir(parents=True, exist_ok=True)
+    save_model(args.output, params, cfg)
+    print(json.dumps({"imported": str(args.checkpoint), "model": str(args.output)}))
+    return 0
+
+
+def _cmd_export_checkpoint(args) -> int:
+    """Export a training checkpoint of this package (train/checkpoint.py) to
+    a .vqmodel inference artifact."""
+    from vqvdb_tpu_torch.core.artifact import save_model
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.models.vqvae import check_ported
+    from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
+    from vqvdb_tpu_torch.train.train import TrainConfig, make_train_state
+
+    mcfg = ModelConfig(in_channels=args.in_channels, embedding_dim=args.embedding_dim,
+                       num_embeddings=args.num_embeddings,
+                       num_quantizers=args.num_quantizers, encoder_arch=args.encoder_arch)
+    check_ported(mcfg)
+    template = make_train_state(mcfg, TrainConfig(), 1, device=args.device)
+    manager = CheckpointManager(args.checkpoint_dir)
+    if args.best:
+        restored = manager.restore_best(template)
+        if restored is None:
+            return _error(f"no best/ checkpoint in {args.checkpoint_dir}")
+        step, state = restored
+    else:
+        step = args.step if args.step is not None else manager.latest_step()
+        if step is None:
+            return _error(f"no checkpoints in {args.checkpoint_dir}")
+        state = manager.restore(step, template)
+    Path(args.output).parent.mkdir(parents=True, exist_ok=True)
+    save_model(args.output, state.params, mcfg)
+    print(json.dumps({"checkpoint_step": int(step), "best": bool(args.best),
+                      "model": str(args.output)}))
+    return 0
+
+
+def _cmd_export_torch(args) -> int:
+    """Export a .vqmodel to reference-runtime torch artifacts: a state_dict
+    checkpoint (.pth, reference trainer layout) and/or a TorchScript module
+    (.pt with encode/decode, the input of the reference's to_onnx.py)."""
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.weights import params_from_jax
+    from vqvdb_tpu_torch.interop import save_reference_checkpoint, save_torchscript
+
+    tree, cfg = load_model(args.model)
+    params = params_from_jax(tree, cfg, args.device)
+    out = {}
+    if args.checkpoint:
+        Path(args.checkpoint).parent.mkdir(parents=True, exist_ok=True)
+        save_reference_checkpoint(args.checkpoint, params, cfg)
+        out["checkpoint"] = str(args.checkpoint)
+    if args.torchscript:
+        Path(args.torchscript).parent.mkdir(parents=True, exist_ok=True)
+        save_torchscript(args.torchscript, params, cfg)
+        out["torchscript"] = str(args.torchscript)
+    if not out:
+        return _error("pass --checkpoint and/or --torchscript")
+    print(json.dumps(out))
+    return 0
+
+
+def _validate_onnx(paths, tree, cfg, device) -> dict:
+    """The exported graphs, run by the numpy evaluator, against the port's
+    encode_to_indices / decode_from_indices on `device` in f32 with TF32
+    off, on 4 seeded leaves."""
+    import torch
+
+    from vqvdb_tpu_torch.core.weights import params_from_jax
+    from vqvdb_tpu_torch.interop.onnx_eval import run_model
+    from vqvdb_tpu_torch.models.vqvae import decode_from_indices, encode_to_indices
+
+    params = params_from_jax(tree, cfg, device)
+    dev = params["vq"]["embedding"].device
+    x = np.random.default_rng(0).random((4, 8, 8, 8, cfg.in_channels), np.float32)
+    tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want_idx = encode_to_indices(params, torch.from_numpy(x).to(dev), cfg)
+            want = decode_from_indices(params, want_idx, cfg).cpu().numpy()
+        want_idx = want_idx.cpu().numpy()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    got_idx = run_model(paths["encoder"], {"input": np.moveaxis(x, -1, 1)})["output"]
+    idx_match = float(np.mean(want_idx == got_idx))
+    got = run_model(paths["decoder"], {"input": want_idx.astype(got_idx.dtype)})["output"]
+    dec_err = float(np.abs(np.moveaxis(got, 1, -1) - want).max())
+    return {"encoder_index_agreement": idx_match, "decoder_max_abs_err": dec_err,
+            "valid": bool(idx_match == 1.0 and dec_err < 1e-5)}
+
+
+def _cmd_export_onnx(args) -> int:
+    """Emit encoder.onnx/decoder.onnx from a .vqmodel and (by default)
+    validate them against the port's model at atol 1e-5 (exit 3 if not)."""
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.interop import export_onnx
+
+    tree, cfg = load_model(args.model)
+    paths = export_onnx(args.output_dir, tree, cfg)
+    result = dict(paths)
+    if args.embed_header:
+        from vqvdb_tpu_torch.interop.embed import write_embed_header
+
+        hdr = write_embed_header(args.embed_header, {
+            "encoder_model_data": paths["encoder"],
+            "decoder_model_data": paths["decoder"],
+        })
+        result["embed_header"] = str(hdr)
+    if not args.no_validate:
+        result.update(_validate_onnx(paths, tree, cfg, args.device))
+        if not result["valid"]:
+            print(json.dumps(result))
+            return 3
+    print(json.dumps(result))
+    return 0
+
+
+def _device_option(p) -> None:
     p.add_argument("--device", default="cuda",
                    help="where the model runs: cuda (default) or cpu")
+
+
+def _codec_options(p) -> None:
+    _device_option(p)
     p.add_argument("--batch-size", type=int, default=4096)
     p.add_argument("--compute-dtype", default="bfloat16")
 
@@ -687,19 +825,66 @@ def build_parser() -> argparse.ArgumentParser:
     pxv.add_argument("--grid", default=None)
     pxv.set_defaults(func=_cmd_extract)
 
-    for name, item in NOT_PORTED.items():
-        sub.add_parser(name, help=f"not ported yet (ROADMAP.md {item})")
+    ps = sub.add_parser("serve", help="Serve the codec over HTTP.")
+    ps.add_argument("--model", required=True)
+    ps.add_argument("--host", default="127.0.0.1")
+    ps.add_argument("--port", type=int, default=8990, help="0 picks a free port")
+    _codec_options(ps)
+    ps.set_defaults(func=_cmd_serve)
+
+    pm = sub.add_parser("import-torch",
+                        help="Convert a reference torch .pth checkpoint to .vqmodel.")
+    pm.add_argument("checkpoint")
+    pm.add_argument("output")
+    pm.add_argument("--in-channels", type=int, default=1, choices=[1, 3])
+    pm.add_argument("--embedding-dim", type=int, default=128)
+    pm.add_argument("--num-embeddings", type=int, default=256)
+    _device_option(pm)
+    pm.set_defaults(func=_cmd_import_torch)
+
+    px = sub.add_parser("export-checkpoint",
+                        help="Export a training checkpoint to a .vqmodel artifact.")
+    px.add_argument("checkpoint_dir")
+    px.add_argument("output")
+    px.add_argument("--step", type=int, default=None, help="checkpoint step (default: latest)")
+    px.add_argument("--best", action="store_true",
+                    help="export the durable best-validation checkpoint")
+    px.add_argument("--in-channels", type=int, default=1, choices=[1, 3])
+    px.add_argument("--embedding-dim", type=int, default=128)
+    px.add_argument("--num-embeddings", type=int, default=256)
+    px.add_argument("--num-quantizers", type=int, default=1)
+    px.add_argument("--encoder-arch", default="reference",
+                    choices=["reference", "packed", "packed_lite", "packed_stem"],
+                    help="encoder graph family (packed_stem is not ported yet)")
+    _device_option(px)
+    px.set_defaults(func=_cmd_export_checkpoint)
+
+    pxt = sub.add_parser("export-torch",
+                         help="Export a .vqmodel to reference torch artifacts (.pth/.pt).")
+    pxt.add_argument("model", help=".vqmodel artifact")
+    pxt.add_argument("--checkpoint", help="output .pth (reference trainer layout)")
+    pxt.add_argument("--torchscript", help="output .pt TorchScript (to_onnx.py-compatible)")
+    _device_option(pxt)
+    pxt.set_defaults(func=_cmd_export_torch)
+
+    pxo = sub.add_parser("export-onnx",
+                         help="Emit encoder.onnx/decoder.onnx for the reference ORT runtime.")
+    pxo.add_argument("model", help=".vqmodel artifact")
+    pxo.add_argument("output_dir", help="directory for encoder.onnx/decoder.onnx")
+    pxo.add_argument("--no-validate", action="store_true",
+                     help="skip the check of the graphs against the port's model")
+    pxo.add_argument("--embed-header", default=None,
+                     help="also write a bin_onnx.h-style C header embedding both models")
+    _device_option(pxo)
+    pxo.set_defaults(func=_cmd_export_onnx)
     return p
 
 
 def main(argv=None) -> int:
-    p = build_parser()
-    args, extra = p.parse_known_args(argv)
-    if args.command in NOT_PORTED:
-        return _error(f"'{args.command}' is not ported to vqvdb_tpu_torch yet "
-                      f"(ROADMAP.md {NOT_PORTED[args.command]})")
-    if extra:
-        p.error(f"unrecognized arguments: {' '.join(extra)}")
+    from vqvdb_tpu_torch.utils.compile_cache import enable_persistent_cache
+
+    enable_persistent_cache()
+    args = build_parser().parse_args(argv)
     try:
         if getattr(args, "data_parallel", False):
             return _error("--data-parallel is not ported yet (ROADMAP.md Queue 1 item 13)")

@@ -20,7 +20,9 @@ encoder is not ported and raises ConfigError; no committed artifact uses it.
   vec3 dec:     conv k3 D->128 GN(8) relu | RB(128) | RB(128) | CA(128)
                 | up_conv k3 128->256 | pixel_shuffle(2) | conv k3 32->3 | tanh
 
-Training: `init_vqvae_params` draws a params tree (encoder / decoder / vq,
+Inference without the codec's folds: `encode_to_indices` /
+`decode_from_indices` (the export validation and the interop tests call
+them). Training: `init_vqvae_params` draws a params tree (encoder / decoder / vq,
 convs OIDHW channels-last, the JAX layout otherwise) from a
 `torch.Generator`; `vqvae_forward` is the training forward with the EMA
 quantizer. Training runs the eager residual block, as the JAX package does:
@@ -59,8 +61,8 @@ def check_ported(cfg: ModelConfig) -> None:
     """Raise ConfigError for a model this package cannot run yet."""
     if cfg.encoder_arch not in PORTED_ENCODER_ARCHS:
         raise ConfigError(
-            f"encoder_arch {cfg.encoder_arch!r} is not ported yet "
-            f"(ported: {', '.join(PORTED_ENCODER_ARCHS)})")
+            f"encoder_arch {cfg.encoder_arch!r} is not ported yet (ROADMAP.md "
+            f"Queue 1 item 15; ported: {', '.join(PORTED_ENCODER_ARCHS)})")
 
 
 def _encoder_features_packed(params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -135,7 +137,11 @@ def encoder_features_packed_down(params: Params, folded_down: Params,
 def decoder_pre_tail(params: Params, z: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     """Decoder up to (excluding) up_conv: (B,4,4,4,D) -> (B,4,4,4,64|128)."""
-    h = blocks.conv3d(params["stem_conv"], z, padding=1)
+    return _decoder_trunk(params, blocks.conv3d(params["stem_conv"], z, padding=1), cfg)
+
+
+def _decoder_trunk(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decoder after its stem conv, up to (excluding) up_conv."""
     h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
     if cfg.variant == "scalar":
         h = blocks.residual_block(params["rb"], h)
@@ -260,6 +266,73 @@ def quantize_infer(vq: VQState, flat: torch.Tensor, cfg: ModelConfig,
         return idx, rvq_dequantize(idx, vq.embedding.to(compute_dtype))
     idx = fused_nearest_indices(rows, vq.embedding)
     return idx, fused_dequantize(idx, vq.embedding.to(compute_dtype))
+
+
+def encode_to_indices(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Inference encode on x's device: leaves (B,8,8,8,C) -> indices
+    (B,4,4,4), or (B,4,4,4,S) for residual-VQ models; uint8 for K <= 256,
+    else int32 (the JAX package returns uint16). On the card through the
+    nearest-code and dequantize kernels (`quantize_infer`)."""
+    z = encoder_apply(params["encoder"], x, cfg)
+    idx, _ = quantize_infer(VQState(**params["vq"]), z.reshape(-1, cfg.embedding_dim), cfg)
+    idx = idx.reshape((z.shape[0],) + cfg.index_shape)
+    return idx.to(torch.uint8) if cfg.num_embeddings <= 256 else idx
+
+
+# Blocks per call of the dequantize kernel in decode_from_indices: its rows
+# are 27 * W floats (7 KB scalar, 14 KB vec3) per latent position.
+DECODE_CHUNK = 1024
+
+
+def _stem_from_indices(stem: Params, codebooks: torch.Tensor, idx: torch.Tensor,
+                       cfg: ModelConfig, compute_dtype) -> torch.Tensor:
+    """The decoder's k3 SAME stem conv of the dequantized indices, as its
+    exact rewrite: per tap t the projected codebook E @ W_t ([K, W]; D
+    products summed in f32), looked up by the dequantize kernel (once per
+    stage), and the 27 taps' rows of the neighbouring positions summed in a
+    fixed order, plus the bias. idx [B, *latent, S] int -> (B,4,4,4,W) in
+    compute_dtype. The direct f32 conv sums 27 D = 3,456 products a value
+    and put the flagship's decode ~1e-5 from an f64 reference on the CPU
+    and the card; this form stays within ~3e-6."""
+    from vqvdb_tpu_torch.ops.quantize import fused_dequantize
+
+    w = stem["w"]  # OIDHW
+    width, k = w.shape[0], w.shape[2]
+    taps = w.to(compute_dtype).to(torch.float32).permute(1, 2, 3, 4, 0).reshape(
+        cfg.embedding_dim, k ** 3 * width)
+    b, (d, h, wd) = idx.shape[0], cfg.latent_shape
+    rows = None
+    for s, e in enumerate(codebooks.reshape(-1, cfg.num_embeddings, cfg.embedding_dim)):
+        table = e.to(compute_dtype).to(torch.float32) @ taps  # [K, 27 W]
+        r = fused_dequantize(idx[..., s].reshape(-1).contiguous(), table)
+        rows = r if rows is None else rows + r
+    pad = k // 2
+    padded = rows.new_zeros((b, d + 2 * pad, h + 2 * pad, wd + 2 * pad, k, k, k, width))
+    padded[:, pad:pad + d, pad:pad + h, pad:pad + wd] = rows.reshape(b, d, h, wd, k, k, k, width)
+    out = None
+    for a in range(k):
+        for c in range(k):
+            for e_ in range(k):
+                t = padded[:, a:a + d, c:c + h, e_:e_ + wd, a, c, e_]
+                out = t if out is None else out + t
+    return (out + stem["b"].to(compute_dtype).to(torch.float32)).to(compute_dtype)
+
+
+def decode_from_indices(params: Params, indices: torch.Tensor, cfg: ModelConfig,
+                        compute_dtype=torch.float32) -> torch.Tensor:
+    """Inference decode on the indices' device: (B,4,4,4[,S]) indices of any
+    integer dtype -> leaves (B,8,8,8,C) f32: the stem conv of the looked-up
+    codewords through the dequantize kernel (`_stem_from_indices`), then the
+    rest of the unfolded decoder, DECODE_CHUNK blocks at a time."""
+    idx = indices if indices.dtype == torch.uint8 else indices.to(torch.int32)
+    idx = idx.reshape((idx.shape[0],) + cfg.latent_shape + (cfg.num_quantizers,))
+    dec = params["decoder"]
+    out = []
+    for s in range(0, idx.shape[0], DECODE_CHUNK):
+        h = _stem_from_indices(dec["stem_conv"], params["vq"]["embedding"],
+                               idx[s:s + DECODE_CHUNK], cfg, compute_dtype)
+        out.append(decoder_tail(dec, _decoder_trunk(dec, h, cfg), cfg))
+    return torch.cat(out) if len(out) != 1 else out[0]
 
 
 def quantize_train_forward(vq: VQState, z: torch.Tensor, cfg: ModelConfig):

@@ -1,9 +1,11 @@
 """Build, load and launch the package's CUDA kernels.
 
 Each `csrc/<name>.cu` is compiled on first use by its own `nvcc` process
-(all started together) into `vqvdb_tpu_torch/_build/<name>-<hash>.so` and
-loaded with ctypes. The hash covers the source and the flags, so an edited
-kernel rebuilds and an unchanged one is reused. The sources have a plain C
+(all started together) into `BUILD_DIR/<name>-<hash>.so` and loaded with
+ctypes. `BUILD_DIR` is `vqvdb_tpu_torch/_build/` unless
+`utils/compile_cache.py` points it elsewhere (`use_build_dir`). The hash
+covers the source and the flags, so an edited kernel rebuilds and an
+unchanged one is reused. The sources have a plain C
 interface: every entry point takes pointers and the stream as `void*`,
 sizes as `int`, and returns `cudaGetLastError()` after its launch.
 
@@ -45,6 +47,13 @@ ENTRY_POINTS = {
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, Tuple[ctypes.CDLL, object]] = {}
+
+
+def use_build_dir(path: Path) -> None:
+    """Build and look up kernel libraries (and the native LZ4 library) in
+    `path` from now on; libraries already loaded stay loaded."""
+    global BUILD_DIR
+    BUILD_DIR = Path(path)
 
 
 def find_nvcc() -> str:

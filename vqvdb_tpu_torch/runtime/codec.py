@@ -27,8 +27,10 @@ v4 when K > 256, v5 (compressed frames) and v6 (with the near-lossless
 residual, whose encode batches also run the decode step, so the stored
 correction is measured against the decode that `decompress` repeats).
 `decode_stream` / `decompress` select grids by name and leaves by bounding
-box; `compress_stream` encodes lazily read leaf streams. Not ported yet: the
-packed_stem encoder and the mesh.
+box; `compress_stream` encodes lazily read leaf streams. Each batch's padding
+and device dispatch are timed under `host/pad` and `device/dispatch` in
+`VQCodec.profiler` (`utils/profiler.py`). Not ported yet: the packed_stem
+encoder and the mesh.
 """
 
 from __future__ import annotations
@@ -65,6 +67,7 @@ from vqvdb_tpu_torch.ops.quantize import (
 from vqvdb_tpu_torch.ops.tail import apply_decoder_tail, fold_decoder_tail
 from vqvdb_tpu_torch.runtime.residual import RESIDUAL_MODES, apply_residual, quantize_residual
 from vqvdb_tpu_torch.utils.errors import ModelMismatchError
+from vqvdb_tpu_torch.utils.profiler import Profiler
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
 
 PIPELINE_DEPTH = 2
@@ -93,15 +96,19 @@ class VQCodec:
     `device` (default `cuda`; without a card, pass `device="cpu"` or the
     constructor raises). The exact weight rewrites (folded decoder tail,
     folded projection scores and the score kernel's split operand, packed
-    down conv) are computed once here.
+    down conv) are computed once here. `profiler` (default: a new one)
+    times each batch's padding and device dispatch.
     """
 
     def __init__(self, params: Dict, model_config: ModelConfig,
                  codec_config: Optional[CodecConfig] = None,
-                 device: DeviceLike = None) -> None:
+                 device: DeviceLike = None, profiler: Optional[Profiler] = None) -> None:
         check_ported(model_config)
         self.mcfg = model_config
         self.ccfg = codec_config or CodecConfig()
+        # Stage timers (host wall clock) of the pipelined batches: pass one
+        # to aggregate across codecs, or read codec.profiler.report().
+        self.profiler = profiler if profiler is not None else Profiler()
         self.params = params_from_jax(params, model_config, device)
         self.device = self.params["vq"]["embedding"].device
         self.dtype = self.ccfg.torch_dtype
@@ -255,12 +262,15 @@ class VQCodec:
             # torch copies (in threads) what numpy would copy in one
             slot.inp[:n].copy_(torch.from_numpy(src.view(np.int16) if src.dtype == np.uint16
                                                 else src))
-            slot.inp[n:].zero_()
-            results = self._steps(kind, slot.inp.to(self.device, non_blocking=True))
-            for out, res in zip(slot.outs, results):
-                out.copy_(res, non_blocking=cuda)
-            if cuda:
-                slot.done.record()
+            if n < slot.inp.shape[0]:
+                with self.profiler("host/pad"):
+                    slot.inp[n:].zero_()
+            with self.profiler("device/dispatch"):
+                results = self._steps(kind, slot.inp.to(self.device, non_blocking=True))
+                for out, res in zip(slot.outs, results):
+                    out.copy_(res, non_blocking=cuda)
+                if cuda:
+                    slot.done.record()
             pending.append((slot, tag, n))
             if len(pending) >= PIPELINE_DEPTH:
                 yield self._collect(pending.popleft())

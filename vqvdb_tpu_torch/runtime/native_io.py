@@ -3,8 +3,9 @@
 
 The library is built from the repo's `native/vqvdb_native.cpp` on first use
 with `g++ -O3 -shared -fPIC -std=c++17 -pthread` into
-`vqvdb_tpu_torch/_build/vqvdb_native-<hash>.so` (the hash covers the source
-and the flags, so an edited source rebuilds). A missing compiler, a failed
+`vqvdb_native-<hash>.so` in the kernels' build directory (`ops/build.py`
+`BUILD_DIR`; the hash covers the source and the flags, so an edited source
+rebuilds). A missing compiler, a failed
 build or a failed load raises: there is no second LZ4 implementation to fall
 back to, because two valid LZ4 encoders need not give the same bytes and the
 port's v5-lz4 files must equal the JAX package's.
@@ -23,7 +24,7 @@ from typing import Optional
 
 import numpy as np
 
-from vqvdb_tpu_torch.ops.build import BUILD_DIR
+from vqvdb_tpu_torch.ops import build as kernel_build
 
 SOURCE = Path(__file__).resolve().parent.parent.parent / "native" / "vqvdb_native.cpp"
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
@@ -34,14 +35,14 @@ _lib: Optional[ctypes.CDLL] = None
 
 def _target() -> Path:
     digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(CXX_FLAGS).encode())
-    return BUILD_DIR / f"vqvdb_native-{digest.hexdigest()[:16]}.so"
+    return kernel_build.BUILD_DIR / f"vqvdb_native-{digest.hexdigest()[:16]}.so"
 
 
 def _build(target: Path) -> None:
     cxx = os.environ.get("CXX") or shutil.which("g++")
     if cxx is None:
         raise RuntimeError("g++ not found; the native LZ4 codec cannot be built")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    kernel_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
     proc = subprocess.run([cxx, *CXX_FLAGS, str(SOURCE), "-o", str(tmp)],
                           capture_output=True, text=True, timeout=300)
