@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (`vqvdb_tpu_torch`) on one CUDA card.
 
     python3 chip_smoke.py [--seed 0] [--leaves 70000] [--side-leaves 17161]
-                          [--profile DIR]
+                          [--profile DIR] [--ranks N] [--mesh-only]
 
 Phases, in this order; any failure raises and the script exits non-zero:
   1. device: the card's name and power limit (nvidia-smi); no card -> exit 1.
@@ -116,6 +116,29 @@ Phases, in this order; any failure raises and the script exits non-zero:
      within 1e-5 of decode_from_indices; the Houdini cooks (grids=) on the
      card byte-identical to api.encode / api.decode. Logs `[serve] {...}`
      and `[interop] {...}`.
+ 16. mesh (`parallel/`): (1) the flagship (batch 4096, bf16) on
+     VQCodec(mesh=make_mesh()) over every visible card: its v3 and v6-int8
+     files of the --leaves leaves byte-identical to the phase-3 codec's
+     (phases 3 and 10), decompress and decode_to_dense bit-identical, one
+     score-argmin (dequantize) launch per shard step, and the rates of the
+     mesh and plain codecs in turns; (2) an in-process NCCL group of one
+     rank on a file store: three flagship-config train steps (batch 2048,
+     bf16, cuDNN deterministic) under group= bit-equal to three without it,
+     and the multi-process codec's v3 file equal to phase 3's; (3) with
+     --ranks N > 1, N NCCL ranks over N cards (torch.multiprocessing): every
+     rank's v3 and v6-int8 files byte-identical to phase 3's, and three f32
+     train steps (TF32 off) of the ranks bit-identical to each other and
+     within rtol 2e-4 / atol 2e-5 of one process on the global batches.
+     --mesh-only runs phases 1-3 and 16 alone. Logs `[mesh] <part> {...}`.
+ 17. packed_stem and the folded final conv: (1) a packed_stem model at the
+     flagship's widths trained from seeded init on the card (one resident
+     epoch over the --leaves leaves, batch 2048, bf16; one nearest-code and
+     one dequantize launch per step and val batch), through save_model ->
+     VQCodec -> v3 (one score-argmin launch per batch) above its initial
+     params' PSNR; (2) phase 9's card-vs-CPU parity on it; (3) the flagship
+     decoded through the folded final conv (fuse_decoder_tail=False, f32,
+     TF32 off) within 1e-5 of the fused tail. Logs `[stem] <part> {...}`.
+Phases 3 and 15-17 log their seconds (`[phaseN]`).
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -131,6 +154,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2126,12 +2150,397 @@ def interop_phase(grid, workdir: Path, device: str = "cuda"):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the mesh
+# ---------------------------------------------------------------------------
+
+MESH_TRAIN_STEPS = 3
+MESH_RTOL, MESH_ATOL = 2e-4, 2e-5  # N ranks vs 1 rank, f32 (tests/test_parallel.py)
+
+
+def _shard_steps(n, bs, size):
+    """Shard steps of a mesh of `size` over n rows at batch bs; a shard wholly
+    past a batch's rows is not run."""
+    per = bs // size
+    return sum(min(size, -(-min(bs, n - s) // per)) for s in range(0, n, bs))
+
+
+def _deterministic():
+    import torch
+
+    cudnn = torch.backends.cudnn
+    return cudnn.flags(enabled=cudnn.enabled, benchmark=False, deterministic=True,
+                       allow_tf32=cudnn.allow_tf32)
+
+
+def _mesh_train(cfg, tcfg, leaves, dev, step_fn=None, rank=0, world=1):
+    """MESH_TRAIN_STEPS train steps from seeded init on this rank's slice of
+    consecutive global batches of `leaves`: (param leaves on the CPU, the
+    metrics of each step)."""
+    import torch
+
+    from vqvdb_tpu_torch.train import train as T
+
+    opt = T.make_optimizer(tcfg, 10)
+    step_fn = step_fn or (lambda s, b: T.train_step(s, b, opt, cfg, tcfg))
+    state = T.make_train_state(cfg, tcfg, 10, dev)
+    bs, per = tcfg.batch_size, tcfg.batch_size // world
+    metrics = []
+    with _deterministic():
+        for i in range(MESH_TRAIN_STEPS):
+            rows = leaves[i * bs + rank * per: i * bs + (rank + 1) * per]
+            state, m, _ = step_fn(state, torch.from_numpy(rows).to(dev))
+            metrics.append({k: float(v) for k, v in m.items()})
+    return [t.cpu() for t in T.tree_leaves(state.params)], metrics
+
+
+def mesh_codec_phase(tree, cfg, codec, grid, refs, workdir: Path):
+    """16.1: VQCodec(mesh=make_mesh()) over every visible card against the
+    phase-3 codec: v3 and v6-int8 files byte-identical, decompress and the
+    dense decode bit-identical, one launch per shard step, rates in turns."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+    from vqvdb_tpu_torch.runtime.dense import decode_to_dense
+
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+
+    mesh = make_mesh()
+    mcodec = VQCodec(tree, cfg, CodecConfig(), mesh=mesh)
+    mcodec.compress(grid_subset(grid, 5000), workdir / "mesh_warm.vqvdb")
+    mcodec.decompress(workdir / "mesh_warm.vqvdb")
+    mesh.synchronize()
+    n, bs = grid.num_leaves, mcodec.ccfg.batch_size
+    steps = _shard_steps(n, bs, mesh.size)
+    out = {"cards": mesh.size, "devices": [str(d) for d in mesh.devices],
+           "rows_per_shard": bs // mesh.size, "shard_steps": steps}
+    for tier, opts in (("v3", {}), ("v6_int8", dict(residual="int8"))):
+        path = workdir / f"mesh_{tier}.vqvdb"
+        reset_launches()
+        mcodec.compress(grid, path, **opts)
+        enc = read_launches()
+        expect_launches(f"mesh {tier} encode", enc, score_argmin=steps,
+                        **({"dequantize": steps} if opts else {}))
+        if path.read_bytes() != refs[tier].read_bytes():
+            raise AssertionError(f"mesh {tier} file differs from the single-device file")
+        out[f"{tier}_byte_identical"] = True
+        out[f"{tier}_encode_launches"] = enc
+    reset_launches()
+    (got,), _ = mcodec.decompress(refs["v3"])
+    out["decode_launches"] = read_launches()
+    expect_launches("mesh decode", out["decode_launches"], dequantize=steps)
+    (want,), _ = codec.decompress(refs["v3"])
+    if not np.array_equal(got.leaves, want.leaves):
+        raise AssertionError("mesh decompress differs from the single-device decompress")
+    out["decompress_bit_identical"] = True
+    with VqvdbReader(refs["v3"]) as r:
+        _, idx, origins = r.read_grid()
+    a, _ = decode_to_dense(codec, idx, origins)
+    b, _ = decode_to_dense(mcodec, idx, origins)
+    if a.shape != b.shape or not torch.equal(a, b.to(a.device)):
+        raise AssertionError("mesh decode_to_dense differs from the single-device one")
+    out["dense_decode_bit_equal"] = {"shape": list(a.shape)}
+    del a, b
+    rates = {"plain": [], "mesh": []}
+    for label, c in (("plain", codec), ("mesh", mcodec), ("mesh", mcodec), ("plain", codec)):
+        cs = c.compress(grid, workdir / "rate.vqvdb")
+        _, ds = c.decompress(workdir / "rate.vqvdb")
+        rates[label].append({"compress": cs["leaves_per_sec"],
+                             "decompress": ds["leaves_per_sec"]})
+    out["rates_in_turns"] = rates
+    # The host's share of a mesh batch: copy_into of one decoded batch
+    # (4096 leaves, 8 MiB) by each thread count.
+    from vqvdb_tpu_torch.runtime.native_io import copy_into
+
+    src = np.ones((bs, 8, 8, 8, 1), np.float32)
+    dst = np.empty_like(src)
+    out["copy_into_8mib_ms"] = {}
+    for threads in (1, 2, 4, 0):
+        copy_into(dst, src, threads)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            copy_into(dst, src, threads)
+        out["copy_into_8mib_ms"][threads or "all"] = (time.perf_counter() - t0) / 20 * 1e3
+    return out
+
+
+def group_of_one_phase(tree, cfg, grid, refs, workdir: Path, seed: int):
+    """16.2: an in-process NCCL group of one rank on a file store: three
+    flagship-config train steps under group= bit-equal to three without it,
+    and the multi-process codec's v3 file equal to the single-device file."""
+    import torch
+    import torch.distributed as dist
+
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.parallel.distributed import init_multi_host
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.train import train as T
+
+    info = init_multi_host(f"file://{workdir}/store_one", 1, 0, backend="nccl")
+    try:
+        mesh = make_mesh()
+        dev = mesh.devices[0]
+        tcfg = T.TrainConfig(seed=seed)  # the flagship's: batch 2048, bf16
+        plain, m_plain = _mesh_train(cfg, tcfg, grid.leaves, dev)
+        step = make_sharded_train_step(mesh, T.make_optimizer(tcfg, 10), cfg, tcfg)
+        reset_launches()
+        grouped, m_grouped = _mesh_train(cfg, tcfg, grid.leaves, dev, step)
+        launches = read_launches()
+        expect_launches("group-of-one train steps", launches,
+                        nearest_indices=MESH_TRAIN_STEPS, dequantize=MESH_TRAIN_STEPS)
+        if not (all(torch.equal(a, b) for a, b in zip(plain, grouped)) and m_plain == m_grouped):
+            raise AssertionError("train steps under an NCCL group of one differ from "
+                                 "steps without a group")
+        mc = VQCodec(tree, cfg, CodecConfig(), mesh=mesh)
+        path = workdir / "group_v3.vqvdb"
+        reset_launches()
+        mc.compress(grid, path)
+        enc = read_launches()
+        expect_launches("group-of-one encode", enc,
+                        score_argmin=-(-grid.num_leaves // mc.ccfg.batch_size))
+        if path.read_bytes() != refs["v3"].read_bytes():
+            raise AssertionError("the multi-process codec's file differs from the "
+                                 "single-device file")
+        return {"backend": dist.get_backend(), "info": info, "train_steps": MESH_TRAIN_STEPS,
+                "batch_size": tcfg.batch_size, "compute_dtype": tcfg.compute_dtype,
+                "train_bit_equal": True, "train_launches": launches,
+                "codec_v3_byte_identical": True, "codec_encode_launches": enc,
+                "loss": [m["loss"] for m in m_grouped]}
+    finally:
+        dist.destroy_process_group()
+
+
+def _mesh_rank(rank, world, store, workdir, seed):
+    """One NCCL rank of phase 16.3 (a torch.multiprocessing child): the
+    multi-process codec's v3 and v6-int8 files and MESH_TRAIN_STEPS f32 train
+    steps on its slice, written to workdir."""
+    import os
+
+    sys.path.insert(0, str(REPO))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.parallel.distributed import init_multi_host
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    workdir = Path(workdir)
+    init_multi_host(store, world, rank, backend="nccl")
+    try:
+        mesh = make_mesh()
+        tree, cfg = load_model(REPO / "models" / "scalar.vqmodel")
+        grid = LeafGrid("density", np.load(workdir / "origins.npy"),
+                        np.load(workdir / "leaves.npy"))
+        codec = VQCodec(tree, cfg, CodecConfig(), mesh=mesh)
+        for tier, opts in (("v3", {}), ("v6_int8", dict(residual="int8"))):
+            codec.compress(grid, workdir / f"rank{rank}_{tier}.vqvdb", **opts)
+        tcfg = T.TrainConfig(seed=seed, compute_dtype="float32")
+        step = make_sharded_train_step(mesh, T.make_optimizer(tcfg, 10), cfg, tcfg)
+        params, metrics = _mesh_train(cfg, tcfg, grid.leaves, mesh.devices[0], step,
+                                      rank, world)
+        np.savez(workdir / f"rank{rank}_params.npz", *[p.numpy() for p in params],
+                 loss=np.array([m["loss"] for m in metrics]))
+    finally:
+        dist.destroy_process_group()
+
+
+def ranks_phase(cfg, grid, refs, workdir: Path, seed: int, ranks: int):
+    """16.3: `ranks` NCCL ranks, one per card (torch.multiprocessing, a file
+    store): every rank's v3 and v6-int8 files byte-identical to the
+    single-device files; MESH_TRAIN_STEPS f32 train steps (TF32 off) of the
+    ranks bit-identical to each other and within the CPU test's tolerance
+    of one process on the global batches."""
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from vqvdb_tpu_torch.train import train as T
+
+    if torch.cuda.device_count() < ranks:
+        raise AssertionError(f"--ranks {ranks} wants {ranks} cards, "
+                             f"{torch.cuda.device_count()} visible")
+    np.save(workdir / "leaves.npy", grid.leaves)
+    np.save(workdir / "origins.npy", grid.origins)
+    tcfg = T.TrainConfig(seed=seed, compute_dtype="float32")
+    with _no_tf32_matmul():
+        one, m_one = _mesh_train(cfg, tcfg, grid.leaves, torch.device("cuda", 0))
+    t0 = time.perf_counter()
+    mp.spawn(_mesh_rank, args=(ranks, f"file://{workdir}/store_ranks", str(workdir), seed),
+             nprocs=ranks)
+    wall = time.perf_counter() - t0
+    for r in range(ranks):
+        for tier in ("v3", "v6_int8"):
+            if (workdir / f"rank{r}_{tier}.vqvdb").read_bytes() != refs[tier].read_bytes():
+                raise AssertionError(f"rank {r}: its {tier} file differs from the "
+                                     "single-device file")
+    got = [np.load(workdir / f"rank{r}_params.npz") for r in range(ranks)]
+    keys = [f"arr_{i}" for i in range(len(one))]
+    for r in range(1, ranks):
+        if not all(np.array_equal(got[r][k], got[0][k]) for k in keys + ["loss"]):
+            raise AssertionError(f"rank {r} ended in another state than rank 0")
+    worst = 0.0
+    for k, want in zip(keys, one):
+        want = want.numpy()
+        err = np.abs(got[0][k] - want)
+        if not (err <= MESH_ATOL + MESH_RTOL * np.abs(want)).all():
+            raise AssertionError(f"{ranks} ranks vs one: params differ by {err.max():.3g}")
+        worst = max(worst, float(err.max()))
+    loss_err = float(np.max(np.abs(got[0]["loss"] - np.array([m["loss"] for m in m_one]))
+                            / np.abs(got[0]["loss"])))
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"{ranks} ranks vs one: loss differs by {loss_err:.3g} relative")
+    return {"ranks": ranks, "files_byte_identical": True, "ranks_bit_identical": True,
+            "param_max_abs_err_vs_one": worst, "loss_max_rel_err_vs_one": loss_err,
+            "wall_s": wall}
+
+
+def _no_tf32_matmul():
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def ctx():
+        flags = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        try:
+            yield
+        finally:
+            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+    return ctx()
+
+
+def mesh_phase(args, tree, cfg, codec, grid, refs, workdir: Path):
+    """Phase 16: 16.1, 16.2 and, with --ranks N > 1, 16.3; each logged as
+    `[mesh] <part> {...}`."""
+    res = {}
+    t0 = time.perf_counter()
+    res["codec"] = mesh_codec_phase(tree, cfg, codec, grid, refs, workdir)
+    log(f"[mesh] codec {json.dumps(res['codec'])}")
+    res["group_of_one"] = group_of_one_phase(tree, cfg, grid, refs, workdir, args.seed)
+    log(f"[mesh] group_of_one {json.dumps(res['group_of_one'])}")
+    if args.ranks > 1:
+        res["ranks"] = ranks_phase(cfg, grid, refs, workdir, args.seed, args.ranks)
+        log(f"[mesh] ranks {json.dumps(res['ranks'])}")
+    else:
+        log("[mesh] ranks: 1 (--ranks N spawns N NCCL ranks over N cards)")
+    log(f"[phase16] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: packed_stem and the folded final conv
+# ---------------------------------------------------------------------------
+
+FOLDED_TAIL_ATOL = 1e-5  # folded final conv vs the fused tail GEMM, f32, TF32 off
+
+
+def stem_phase(args, flag_tree, flag_cfg, grid, flag_file: Path, workdir: Path):
+    """Phase 17: (1) a packed_stem model at the flagship's widths trained
+    from seeded init on the card (one resident epoch, batch 2048, bf16),
+    save_model -> VQCodec -> v3 round trip above its initial params' PSNR;
+    (2) its card-vs-CPU parity (phase 9's gates); (3) the flagship decoded
+    through the folded final conv (fuse_decoder_tail=False) in f32, TF32
+    off, against the fused tail, on the first 16,384 blocks of the phase-3
+    file `flag_file`."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.core.artifact import load_model, save_model
+    from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.train.fast import train_on_device
+
+    t0 = time.perf_counter()
+    out = {}
+    cfg = ModelConfig(embedding_dim=flag_cfg.embedding_dim,
+                      num_embeddings=flag_cfg.num_embeddings, encoder_arch="packed_stem")
+    tcfg = T.TrainConfig(epochs=1, seed=args.seed)
+    steps, vals = _split_counts(grid.num_leaves, tcfg)
+    reset_launches()
+    t1 = time.perf_counter()
+    state, trace = train_on_device(grid.leaves, cfg, tcfg, device="cuda", log_fn=_quiet)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t1
+    launches = read_launches()
+    expect_launches("packed_stem training", launches, nearest_indices=steps + vals,
+                    dequantize=steps + vals)
+    if not np.isfinite(trace).all():
+        raise AssertionError(f"packed_stem training: metrics not finite: {trace}")
+    psnrs = {}
+    for label, params in (("init", T.make_train_state(cfg, tcfg, 1, "cpu").params),
+                          ("trained", state.params)):
+        path = workdir / f"stem_{label}.vqmodel"
+        save_model(path, params, cfg)
+        tree, cfg2 = load_model(path)
+        res = round_trip(f"packed_stem_{label}", VQCodec(tree, cfg2, CodecConfig(),
+                                                         device="cuda"),
+                         grid, workdir, min_psnr=0.0)
+        n = res["batches"]
+        expect_launches(f"packed_stem {label} encode", res["encode_launches"], score_argmin=n)
+        expect_launches(f"packed_stem {label} decode", res["decode_launches"], dequantize=n)
+        psnrs[label] = res["psnr_db"]
+        out[f"round_trip_{label}"] = res
+    if not psnrs["trained"] > psnrs["init"]:
+        raise AssertionError(f"packed_stem: trained PSNR {psnrs['trained']:.2f} dB does not "
+                             f"beat the initial params' {psnrs['init']:.2f} dB")
+    out["train"] = {"steps": steps, "val_batches": vals, "batch_size": tcfg.batch_size,
+                    "compute_dtype": tcfg.compute_dtype, "seconds": train_s,
+                    "steps_per_s": steps / train_s, "trace": trace.tolist(),
+                    "launches": launches}
+    log(f"[stem] train {json.dumps(out['train'])}")
+    log(f"[stem] round_trip {json.dumps({k: out[k] for k in out if k.startswith('round')})}")
+    tree, _ = load_model(workdir / "stem_trained.vqmodel")
+    with _no_tf32_matmul():
+        out["parity"] = parity_phase("packed_stem", tree, cfg, grid)
+    log(f"[stem] parity {json.dumps(out['parity'])}")
+    idx = _file_indices(flag_file)[:16384]
+    with _no_tf32_matmul():
+        fused = VQCodec(flag_tree, flag_cfg, CodecConfig(compute_dtype="float32"),
+                        device="cuda")
+        folded = VQCodec(flag_tree, flag_cfg, CodecConfig(compute_dtype="float32",
+                                                          fuse_decoder_tail=False),
+                         device="cuda")
+        reset_launches()
+        a = folded.decode_indices(idx)
+        dec = read_launches()
+        b = fused.decode_indices(idx)
+    expect_launches("folded final conv decode", dec,
+                    dequantize=-(-idx.shape[0] // folded.ccfg.batch_size))
+    err = float(np.abs(a - b).max())
+    if not (np.isfinite(a).all() and err <= FOLDED_TAIL_ATOL):
+        raise AssertionError(f"folded final conv vs fused tail: {err:.3g} > {FOLDED_TAIL_ATOL}")
+    out["folded_final_conv"] = {"leaves": int(idx.shape[0]), "max_abs_err_vs_fused_tail": err,
+                                "atol": FOLDED_TAIL_ATOL, "launches": dec}
+    log(f"[stem] folded_final_conv {json.dumps(out['folded_final_conv'])}")
+    log(f"[phase17] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--leaves", type=int, default=70000)
     ap.add_argument("--side-leaves", type=int, default=17161)
     ap.add_argument("--profile", type=Path, default=None, metavar="DIR")
+    ap.add_argument("--ranks", type=int, default=1,
+                    help="phase 16.3: spawn this many NCCL ranks, one per card")
+    ap.add_argument("--mesh-only", action="store_true",
+                    help="run phases 1-3 and 16 only (the multi-card measurement)")
     args = ap.parse_args()
 
     import torch
@@ -2172,10 +2581,27 @@ def main() -> int:
     log(f"[data] {grid.num_leaves} leaves ({grid.leaves.nbytes / 2**20:.0f} MiB f32) "
         f"from seed {args.seed} in {time.perf_counter() - t0:.1f} s")
 
+    # The phase-3 codec's v3 and v6-int8 files, which phase 16 holds the mesh to.
+    keep_dir = tempfile.TemporaryDirectory()
+    keep = Path(keep_dir.name)
+    refs = {"v3": keep / "main_v3.vqvdb", "v6_int8": keep / "main_v6_int8.vqvdb"}
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
+        t0 = time.perf_counter()
         codec, main_res = main_path(tree, cfg, grid, workdir)
+        shutil.copy(workdir / "main.vqvdb", refs["v3"])
         log(f"[main] {json.dumps(main_res)}")
+        log(f"[phase3] {time.perf_counter() - t0:.1f} s")
+        if args.mesh_only:
+            codec.compress(grid, refs["v6_int8"], residual="int8")
+            mesh_phase(args, tree, cfg, codec, grid, refs, workdir)
+            keep_dir.cleanup()
+            log(f"[done] {time.perf_counter() - t_start:.1f} s")
+            print(json.dumps({"kernels": []}))
+            print(smi)
+            print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                                     "count": torch.cuda.device_count()}}))
+            return 0
         kernels = log_kernel_rows(kernel_phase(codec, grid))
         if args.profile is not None:
             log(f"[profile] {json.dumps(profile_batches(codec, grid, args.profile))}")
@@ -2215,6 +2641,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         tier_phase(codec, grid, workdir)
+        shutil.copy(workdir / "v6_int8.vqvdb", refs["v6_int8"])
         rvq = side["scalar_rvq2"][2]
         rvq_res = tier_round_trip("scalar_rvq2 v6_f16", rvq, grid_subset(grid, args.side_leaves),
                                   workdir / "rvq2.vqvdb", residual="f16")
@@ -2237,6 +2664,11 @@ def main() -> int:
         log(f"[serve] {json.dumps(serving_phase(args.seed, grid, Path(tmp)))}")
         log(f"[interop] {json.dumps(interop_phase(grid, Path(tmp)))}")
         log(f"[phase15] {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_res = mesh_phase(args, tree, cfg, codec, grid, refs, Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        stem_res = stem_phase(args, tree, cfg, grid, refs["v3"], Path(tmp))
+    keep_dir.cleanup()
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
@@ -2255,10 +2687,24 @@ def main() -> int:
     launches["dequantize_bf16_d20"] = deep_res["d20"]["decode_launches"]["dequantize"]
     launches["nearest_indices_train"] = train_res["host_loop"]["launches"]["nearest_indices"]
     launches["dequantize_train"] = train_res["host_loop"]["launches"]["dequantize"]
+    # Paths without a kernel row of their own: the mesh's shard steps and the
+    # packed_stem model's training and codec; each must have launched too.
+    launches["score_argmin_mesh"] = mesh_res["codec"]["v3_encode_launches"]["score_argmin"]
+    launches["dequantize_mesh"] = mesh_res["codec"]["decode_launches"]["dequantize"]
+    launches["nearest_indices_group_of_one"] = \
+        mesh_res["group_of_one"]["train_launches"]["nearest_indices"]
+    launches["score_argmin_packed_stem"] = \
+        stem_res["round_trip_trained"]["encode_launches"]["score_argmin"]
+    launches["nearest_indices_packed_stem_train"] = \
+        stem_res["train"]["launches"]["nearest_indices"]
+    launches["dequantize_folded_final_conv"] = \
+        stem_res["folded_final_conv"]["launches"]["dequantize"]
     for row in kernels:
         row["launches"] = launches[row["name"]]
-        if row["launches"] < 1:
-            raise AssertionError(f"{row['name']} was not launched on its path")
+    log(f"[launches] {json.dumps(launches)}")
+    for name, count in launches.items():
+        if count < 1:
+            raise AssertionError(f"{name} was not launched on its path")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -8,9 +8,9 @@ within 1e-5 relative: the flagship holds near-duplicate codes); `info`,
 `verify`, `transcode` and `vdbinfo` must print the same JSON; usage errors
 exit 2 in both; `serve`, `import-torch`, `export-checkpoint`, `export-torch`
 and `export-onnx` answer, write and exit as the JAX CLI's (train, datagen
-and eval: test_torch_port_eval.py); --data-parallel exits 2 naming the
-ROADMAP.md item that brings it. The port's encode / decode JSON has the JAX
-keys and `host_seconds`.
+and eval: test_torch_port_eval.py); --data-parallel on `--device cpu`
+writes what the run without it writes, and exits 2 on a device with an
+index. The port's encode / decode JSON has the JAX keys and `host_seconds`.
 """
 
 import json
@@ -453,9 +453,48 @@ def test_export_onnx_matches_the_jax_cli(tmp_path, capsys, fast_jax_load):
 
 
 def test_data_parallel_exits_2(tmp_path, capsys):
-    rc = cli(["encode", "x.npy", str(tmp_path / "o.vqvdb"), "--model", str(MODEL),
-              "--data-parallel", *CPU])
-    assert rc == 2 and "item 13" in capsys.readouterr().err
+    """--data-parallel takes every local device, so a device with an index
+    is a usage error (exit 2) on every command that has the flag."""
+    for argv in (["encode", "x.npy", str(tmp_path / "o.vqvdb"), "--model", str(MODEL)],
+                 ["decode", "x.vqvdb", str(tmp_path / "o"), "--model", str(MODEL)],
+                 ["train", "--data-dir", str(tmp_path)]):
+        rc = cli(argv + ["--data-parallel", "--device", "cuda:1"])
+        assert rc == 2 and "without an index" in capsys.readouterr().err
+
+
+def test_data_parallel_on_the_cpu_writes_what_the_run_without_it_writes(tmp_path, capsys):
+    """--data-parallel --device cpu (a mesh of the one CPU entry; `train` in
+    this process): encode, decode, encode-seq / decode-seq and train write
+    the bytes that the same commands write without it."""
+    g = _grid(seed=5, size=32)
+    g.save_npy(tmp_path / "density.npy")
+    (tmp_path / "seq").mkdir()
+    g.save_npy(tmp_path / "seq" / "f0.npy")
+    (tmp_path / "data").mkdir()
+    np.save(tmp_path / "data" / "leaves.npy", g.leaves[:40, ..., 0])
+    for tag, dp in (("plain", []), ("dp", ["--data-parallel"])):
+        out = tmp_path / tag
+        out.mkdir()
+        rc, _ = _run(cli, ["encode", tmp_path / "density.npy", out / "a.vqvdb", "--model",
+                           MODEL, "--residual", "int8", *dp, *CPU, *F32], capsys)
+        assert rc == 0
+        rc, _ = _run(cli, ["decode", out / "a.vqvdb", out / "dec", "--model", MODEL, *dp,
+                           *CPU, *F32], capsys)
+        assert rc == 0
+        rc, _ = _run(cli, ["encode-seq", tmp_path / "seq", out / "seq", "--glob", "f?.npy",
+                           "--model", MODEL, *dp, *CPU, *F32], capsys)
+        rc2, _ = _run(cli, ["decode-seq", out / "seq", out / "seqdec", "--model", MODEL,
+                            *dp, *CPU, *F32], capsys)
+        assert rc == rc2 == 0
+        rc = cli(["train", "--data-dir", str(tmp_path / "data"), "--model-path",
+                  str(out / "m.vqmodel"), "--epochs", "1", "--batch-size", "16",
+                  "--embedding-dim", "16", "--num-embeddings", "32", "--encoder-arch",
+                  "packed", "--compute-dtype", "float32", "--device-resident", *dp, *CPU])
+        printed = capsys.readouterr().out
+        assert rc == 0 and ("data-parallel device-resident over 1 devices" in printed) == bool(dp)
+    for f in ("a.vqvdb", "dec/density.npy", "dec/density._origins.npy",
+              "seq/frame_0000.vqvdb", "seqdec/frame_0000/density.npy", "m.vqmodel"):
+        assert (tmp_path / "dp" / f).read_bytes() == (tmp_path / "plain" / f).read_bytes(), f
 
 
 def test_sequences_api_and_cli(tmp_path, capsys):

@@ -155,8 +155,8 @@ def test_device_rule_and_unported_configs():
         VQCodec(tree, cfg)
     with pytest.raises(ConfigError):
         VQCodec(tree, cfg, device="cuda")
-    # packed_stem is the one encoder left to port; a model whose codebook
-    # does not fit its config is refused as well.
+    # A tree whose encoder is not the config's graph (the flagship's packed
+    # encoder under packed_stem), or whose codebook does not fit it, is refused.
     with pytest.raises(ConfigError):
         VQCodec(tree, ModelConfig(encoder_arch="packed_stem"), device="cpu")
     with pytest.raises(ConfigError):

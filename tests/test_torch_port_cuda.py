@@ -690,3 +690,86 @@ def test_card_export_onnx_validates(tmp_path, capsys, name):
     assert rc == 0 and out["valid"] is True, out
     assert q.fused_nearest_indices.launches - before[0] == 1
     assert q.fused_dequantize.launches - before[1] == 2
+
+
+@pytest.mark.cuda
+def test_card_mesh_codec_equals_one_device(tmp_path, rng):
+    """The flagship on a mesh of every visible card: the v3 and v6-int8
+    files byte-identical to one card's, decompress bit-identical, and one
+    score-argmin (dequantize) launch per shard step."""
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    dev = _card()
+    tree, cfg = load_model(_MODELS / "scalar.vqmodel")
+    mesh = make_mesh()
+    bs = 64 * mesh.size
+    single = VQCodec(tree, cfg, CodecConfig(batch_size=bs), device=dev)
+    codec = VQCodec(tree, cfg, CodecConfig(batch_size=bs), mesh=mesh)
+    n = 3 * bs + 17
+    origins = (np.stack(np.unravel_index(np.arange(n), (32, 32, 32)), 1) * 8).astype(np.int32)
+    grid = LeafGrid("density", origins, rng.random((n, 8, 8, 8, 1), np.float32))
+    shard_steps = sum(min(mesh.size, -(-(n - s) // 64)) for s in range(0, n, bs))
+    for opts in ({}, dict(residual="int8")):
+        single.compress(grid, tmp_path / "single.vqvdb", **opts)
+        before = (q.fused_score_argmin.launches, q.fused_dequantize.launches)
+        codec.compress(grid, tmp_path / "mesh.vqvdb", **opts)
+        got = (q.fused_score_argmin.launches - before[0],
+               q.fused_dequantize.launches - before[1])
+        assert got == (shard_steps, shard_steps if opts else 0)
+        assert (tmp_path / "mesh.vqvdb").read_bytes() == (tmp_path / "single.vqvdb").read_bytes()
+        (a,), _ = single.decompress(tmp_path / "single.vqvdb")
+        (b,), _ = codec.decompress(tmp_path / "single.vqvdb")
+        assert np.array_equal(a.leaves, b.leaves)
+    assert codec.check_latent_shape() == (4, 4, 4)
+
+
+@pytest.mark.cuda
+def test_card_nccl_group_of_one(tmp_path, rng):
+    """An in-process NCCL group of one rank on a file store: three train
+    steps with group= equal three without it bit for bit (an all-reduce over
+    one rank, divided by 1, is exact), and the multi-process codec's file
+    equals the single-device codec's."""
+    import torch.distributed as dist
+
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
+    from vqvdb_tpu_torch.parallel.distributed import init_multi_host
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh, make_sharded_train_step
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.train import train as T
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    dev = _card()
+    info = init_multi_host(f"file://{tmp_path}/store", 1, 0, backend="nccl")
+    try:
+        assert info["process_count"] == 1 and dist.get_backend() == "nccl"
+        mesh = make_mesh()
+        assert mesh.multiprocess and mesh.devices == (torch.device("cuda", 0),)
+        cfg = ModelConfig(embedding_dim=32, num_embeddings=64, encoder_arch="packed")
+        tcfg = T.TrainConfig(batch_size=32, lr=1e-3)
+        opt = T.make_optimizer(tcfg, 10)
+        batches = [torch.from_numpy(rng.random((32, 8, 8, 8, 1), np.float32)).to(dev)
+                   for _ in range(3)]
+        states = []
+        for step in (lambda s, b: T.train_step(s, b, opt, cfg, tcfg),
+                     make_sharded_train_step(mesh, opt, cfg, tcfg)):
+            state = T.make_train_state(cfg, tcfg, 10, dev)
+            for b in batches:
+                state, _, _ = step(state, b)
+            states.append(T.tree_leaves(state.params))
+        assert all(torch.equal(a, b) for a, b in zip(*states))
+        tree, mcfg = load_model(_MODELS / "scalar.vqmodel")
+        n = 300
+        origins = (np.stack(np.unravel_index(np.arange(n), (8, 8, 8)), 1) * 8).astype(np.int32)
+        grid = LeafGrid("density", origins, rng.random((n, 8, 8, 8, 1), np.float32))
+        VQCodec(tree, mcfg, CodecConfig(batch_size=128), device=dev).compress(
+            grid, tmp_path / "single.vqvdb")
+        VQCodec(tree, mcfg, CodecConfig(batch_size=128), mesh=mesh).compress(
+            grid, tmp_path / "group.vqvdb")
+        assert (tmp_path / "group.vqvdb").read_bytes() == (tmp_path / "single.vqvdb").read_bytes()
+    finally:
+        dist.destroy_process_group()

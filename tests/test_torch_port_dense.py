@@ -37,7 +37,7 @@ from vqvdb_tpu_torch.runtime.dense import (
     encode_dense_to_file,
     encode_from_dense,
 )
-from vqvdb_tpu_torch.utils.errors import ConfigError, VqvdbError
+from vqvdb_tpu_torch.utils.errors import VqvdbError
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
 
 torch.set_num_threads(2)
@@ -297,17 +297,25 @@ def test_u16_and_vec3_dense_round_trips(rng, name, k):
 
 
 def test_mesh_path_raises(codecs, rng):
+    """The dense paths refuse a multi-process mesh (they build host-global
+    inputs), as the JAX package's do; `data_parallel=` / `mesh=` give a mesh
+    codec on the CPU."""
+    from vqvdb_tpu_torch.parallel.mesh import Mesh, make_mesh
+
     codec, _, _ = codecs
     g = _sparse_grid(rng, bdims=(2, 2, 2), fill=1.0)
     idx = codec.encode_leaves(g.leaves)
-    codec.mesh = object()
+    codec.mesh = Mesh((torch.device("cpu"),), 2, 1, group=object())
     try:
-        with pytest.raises(VqvdbError, match="item 13"):
+        with pytest.raises(VqvdbError, match="one process"):
             decode_to_dense(codec, idx, g.origins)
-        with pytest.raises(VqvdbError, match="item 13"):
+        with pytest.raises(VqvdbError, match="one process"):
             encode_from_dense(codec, np.zeros((8, 8, 8), np.float32))
     finally:
-        del codec.mesh
-    for kw in (dict(data_parallel=True), dict(mesh=object())):
-        with pytest.raises(ConfigError, match="item 13"):
-            api.make_codec(MODELS / "scalar.vqmodel", device="cpu", **kw)
+        codec.mesh = None
+    for kw, size in ((dict(data_parallel=True), 1), (dict(mesh=make_mesh(2, "cpu")), 2)):
+        assert api.make_codec(MODELS / "scalar.vqmodel", device="cpu", batch_size=64,
+                              **kw).mesh.size == size
+    with pytest.raises(ValueError, match="divide evenly"):
+        api.make_codec(MODELS / "scalar.vqmodel", device="cpu", batch_size=63,
+                       mesh=make_mesh(2, "cpu"))

@@ -169,7 +169,7 @@ def test_cli_train_usage_errors(tmp_path, capsys):
     assert rc == jrc == 2 and "no .npy files" in err
     rc, _, err = _run(cli, ["train", "--data-dir", tmp_path / "empty", "--data-parallel",
                             *CPU], capsys)
-    assert rc == 2 and "item 13" in err
+    assert rc == 2 and "no .npy files" in err
     rc, _, err = _run(cli, ["eval", "--data-dir", tmp_path / "empty", "--model", "m",
                             *CPU], capsys)
     assert rc == 2 and "no .npy files" in err

@@ -44,6 +44,8 @@ def test_every_port_module_imports_without_jax():
                  "vqvdb_tpu_torch.interop.torch_module", "vqvdb_tpu_torch.interop.torch_export",
                  "vqvdb_tpu_torch.interop.onnx_proto", "vqvdb_tpu_torch.interop.onnx_export",
                  "vqvdb_tpu_torch.interop.onnx_eval", "vqvdb_tpu_torch.interop.embed",
-                 "vqvdb_tpu_torch.integrations.houdini"):
+                 "vqvdb_tpu_torch.integrations.houdini", "vqvdb_tpu_torch.parallel",
+                 "vqvdb_tpu_torch.parallel.mesh", "vqvdb_tpu_torch.parallel.distributed",
+                 "vqvdb_tpu_torch.ops.subpixel"):
         assert want in names
     assert leaked == "LEAKED []"

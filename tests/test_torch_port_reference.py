@@ -168,14 +168,15 @@ def test_vec3_encoder_decoder_and_tail(rng, source):
 
 
 def test_packed_stem_still_raises():
-    cfg = ModelConfig(encoder_arch="packed_stem")
-    with pytest.raises(ConfigError):
-        vqvae.check_ported(cfg)
-    with pytest.raises(ConfigError):
-        vqvae.encoder_features({}, torch.zeros(1, 8, 8, 8, 1), cfg)
+    """A packed_stem config still raises on a tree without the 8^3 stage
+    (the flagship's packed encoder); every shipped artifact's tree fits its
+    config."""
+    tree = params_from_jax(*load_model(MODELS / "scalar.vqmodel"), device="cpu")
+    with pytest.raises(ConfigError, match="packed_stem"):
+        vqvae.check_tree(tree, ModelConfig(encoder_arch="packed_stem"))
     for name in ("scalar", "scalar_packed_lite", "scalar_reference", "scalar_rvq2",
                  "vec3", "vec3_rvq2"):
-        vqvae.check_ported(load_model(MODELS / f"{name}.vqmodel")[1])
+        vqvae.check_tree(*load_model(MODELS / f"{name}.vqmodel"))
 
 
 def test_rvq_codebook_shape_is_checked():

@@ -311,10 +311,14 @@ def test_eval_step_matches_jax(kw):
 
 
 def test_mesh_raises_naming_item_13(tmp_path):
+    """Both trainers refuse a mesh of several devices in one process
+    (training runs one process per device) and say how to launch one."""
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+
     ds = dataset(tmp_path, n_volumes=1)
     for fn, arg in ((train.train, ds), (train_on_device, np.zeros((16, 8, 8, 8), np.float32))):
-        with pytest.raises(ConfigError, match="item 13"):
-            fn(arg, ModelConfig(**PACKED), train.TrainConfig(), mesh=object(), device="cpu")
+        with pytest.raises(ConfigError, match="one process per device"):
+            fn(arg, ModelConfig(**PACKED), train.TrainConfig(), mesh=make_mesh(2, "cpu"))
 
 
 # ---------------------------------------------------------------------------

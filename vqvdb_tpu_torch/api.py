@@ -9,9 +9,8 @@ decoder surfaces as Python calls.
 
 `model` is a `.vqmodel` path, a (params, ModelConfig) pair as `load_model`
 returns it, or a ready `VQCodec`. Codecs run on `cuda` unless `device="cpu"`
-is given. Not ported yet: `save_model` (comes with training) and the
-data-parallel codec (`data_parallel=` / `mesh=` raise; ROADMAP.md Queue 1
-item 13).
+is given; `make_codec(data_parallel=True)` shards every device step over all
+local cards (`parallel/mesh.py`), with files byte-identical to one card's.
 """
 
 from __future__ import annotations
@@ -22,8 +21,8 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 from vqvdb_tpu_torch.core.artifact import load_model  # noqa: F401
 from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
 from vqvdb_tpu_torch.core.weights import DeviceLike
+from vqvdb_tpu_torch.parallel.mesh import Mesh, make_mesh
 from vqvdb_tpu_torch.runtime.codec import VQCodec
-from vqvdb_tpu_torch.utils.errors import ConfigError
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
 
 PathLike = Union[str, Path]
@@ -37,19 +36,20 @@ def make_codec(
     compute_dtype: str = "bfloat16",
     device: DeviceLike = None,
     data_parallel: bool = False,
-    mesh=None,
+    mesh: Optional[Mesh] = None,
 ) -> VQCodec:
     """A codec from a `.vqmodel` path or (params, cfg), on `device`
-    (default `cuda`)."""
-    if data_parallel or mesh is not None:
-        raise ConfigError("the data-parallel codec is not ported yet "
-                          "(ROADMAP.md Queue 1 item 13)")
+    (default `cuda`). data_parallel=True shards every device step over a
+    mesh of all local devices (`make_mesh(device=device)`: every card, or
+    one CPU entry); pass `mesh` instead for another mesh."""
     if isinstance(model, (str, Path)):
         params, mcfg = load_model(model)
     else:
         params, mcfg = model
+    if data_parallel and mesh is None:
+        mesh = make_mesh(device=device)
     ccfg = CodecConfig(batch_size=batch_size, compute_dtype=compute_dtype)
-    return VQCodec(params, mcfg, ccfg, device=device)
+    return VQCodec(params, mcfg, ccfg, device=device, mesh=mesh)
 
 
 def _codec(model: ModelLike, batch_size: int, device: DeviceLike) -> VQCodec:

@@ -21,14 +21,22 @@ CLI's keys and, where the codec reports it, `host_seconds`; `train` logs its
 epochs and writes the model, its `.history.json` and checkpoints (the
 port's own format, train/checkpoint.py). Exit codes are the JAX CLI's: 0
 done, 1 a file or model error, 2 a usage error, 130 an encode stopped by
-^C; `export-onnx` exits 3 when its graphs fail validation. Not ported yet,
-exiting 2 with the ROADMAP.md item that brings it: --data-parallel (item 13).
+^C; `export-onnx` exits 3 when its graphs fail validation.
+
+`--data-parallel` shards each device step of `encode`, `decode`,
+`encode-seq` and `decode-seq` over every local card (`parallel/mesh.py`;
+files byte-identical to one card's). On `train` (host loop or
+`--device-resident`) it starts one NCCL rank per visible card with
+`torch.multiprocessing`, or, under `torch.distributed.run` (WORLD_SIZE set),
+joins the launcher's ranks; rank 0 writes the checkpoints and the model.
+With one card, or `--device cpu`, it trains in this process.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -53,7 +61,8 @@ def _make_codec(args):
     from vqvdb_tpu_torch import api
 
     return api.make_codec(args.model, batch_size=args.batch_size,
-                          compute_dtype=args.compute_dtype, device=args.device)
+                          compute_dtype=args.compute_dtype, device=args.device,
+                          data_parallel=getattr(args, "data_parallel", False))
 
 
 def _load_one_grid(f: Path):
@@ -397,18 +406,28 @@ def _cmd_extract(args) -> int:
 
 
 def _cmd_train(args) -> int:
+    if args.data_parallel:
+        return _train_data_parallel(args)
+    return _train(args)
+
+
+def _train(args, mesh=None) -> int:
+    """The training run of this process (this rank's part under `mesh`);
+    rank 0 writes the model."""
     from vqvdb_tpu_torch.core.artifact import save_model
     from vqvdb_tpu_torch.core.config import ModelConfig
     from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
     from vqvdb_tpu_torch.train.data import LeafDataset, find_npy_files
     from vqvdb_tpu_torch.train.train import TrainConfig, train
 
+    rank = 0 if mesh is None else mesh.first_shard
+    say = print if rank == 0 else (lambda *_: None)
     files = find_npy_files(args.data_dir)
     if not files:
         return _error(f"no .npy files in {args.data_dir}")
-    print(f"found {len(files)} .npy files")
+    say(f"found {len(files)} .npy files")
     ds = LeafDataset(files, in_channels=args.in_channels, stride=args.stride)
-    print(f"dataset: {len(ds)} leaves")
+    say(f"dataset: {len(ds)} leaves")
     mcfg = ModelConfig(in_channels=args.in_channels, embedding_dim=args.embedding_dim,
                        num_embeddings=args.num_embeddings,
                        num_quantizers=args.num_quantizers, encoder_arch=args.encoder_arch)
@@ -420,15 +439,22 @@ def _cmd_train(args) -> int:
     if args.device_resident:
         from vqvdb_tpu_torch.train.fast import train_on_device
 
+        if mesh is not None:
+            say(f"data-parallel device-resident over {mesh.size} devices")
         state, trace = train_on_device(ds.gather(np.arange(len(ds))), mcfg, tcfg,
                                        checkpoint_dir=ckpt_dir, resume=not args.no_resume,
-                                       device=args.device)
+                                       mesh=mesh, log_fn=say, device=args.device)
         history = {"loss": trace[:, 0].tolist(), "recon": trace[:, 1].tolist(),
                    "vq": trace[:, 2].tolist(), "perplexity": trace[:, 3].tolist(),
                    "val_loss": trace[:, 4].tolist()}
     else:
+        if mesh is not None:
+            say(f"data-parallel over {mesh.size} devices")
         state, history = train(ds, mcfg, tcfg, checkpoint_dir=ckpt_dir,
-                               resume=not args.no_resume, device=args.device)
+                               resume=not args.no_resume, mesh=mesh, log_fn=say,
+                               device=args.device)
+    if rank:
+        return 0
     Path(args.model_path).parent.mkdir(parents=True, exist_ok=True)
     # Model selection: the best-val state where one was recorded, else the
     # final state.
@@ -445,6 +471,50 @@ def _cmd_train(args) -> int:
     print(f"model saved to {args.model_path}")
     Path(args.model_path).with_suffix(".history.json").write_text(json.dumps(history))
     return 0
+
+
+def _train_data_parallel(args) -> int:
+    """train --data-parallel: join torch.distributed.run's ranks, or start
+    one NCCL rank per visible card, or (one card, or the CPU) train here on
+    a mesh of one device."""
+    import torch
+
+    from vqvdb_tpu_torch.parallel.distributed import init_multi_host
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = torch.device(args.device).type == "cpu"
+    if "WORLD_SIZE" in os.environ:
+        init_multi_host("env://", int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"]),
+                        backend="gloo" if cpu else "nccl")
+        return _train(args, make_mesh(device="cpu" if cpu else None))
+    n = 1 if cpu else torch.cuda.device_count()
+    if n <= 1:
+        return _train(args, make_mesh(device=args.device))
+    import tempfile
+
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # A file store in a fresh directory: no port to find or to collide on.
+        mp.spawn(_train_rank, args=(n, f"file://{tmp}/store", args), nprocs=n)
+    return 0
+
+
+def _train_rank(rank: int, world: int, init_method: str, args) -> None:
+    """One rank of train --data-parallel (a torch.multiprocessing child)."""
+    import torch.distributed as dist
+
+    from vqvdb_tpu_torch.parallel.distributed import init_multi_host
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    init_multi_host(init_method, world, rank, backend="nccl")
+    try:
+        rc = _train(args, make_mesh())
+    finally:
+        dist.destroy_process_group()
+    if rc:
+        raise SystemExit(rc)
 
 
 def _cmd_datagen(args) -> int:
@@ -535,14 +605,12 @@ def _cmd_export_checkpoint(args) -> int:
     a .vqmodel inference artifact."""
     from vqvdb_tpu_torch.core.artifact import save_model
     from vqvdb_tpu_torch.core.config import ModelConfig
-    from vqvdb_tpu_torch.models.vqvae import check_ported
     from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
     from vqvdb_tpu_torch.train.train import TrainConfig, make_train_state
 
     mcfg = ModelConfig(in_channels=args.in_channels, embedding_dim=args.embedding_dim,
                        num_embeddings=args.num_embeddings,
                        num_quantizers=args.num_quantizers, encoder_arch=args.encoder_arch)
-    check_ported(mcfg)
     template = make_train_state(mcfg, TrainConfig(), 1, device=args.device)
     manager = CheckpointManager(args.checkpoint_dir)
     if args.best:
@@ -687,7 +755,7 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--embedding-dim", type=int, default=128)
     pt.add_argument("--encoder-arch", default="reference",
                     choices=["reference", "packed", "packed_lite", "packed_stem"],
-                    help="encoder graph family (packed_stem is not ported yet)")
+                    help="encoder graph family")
     pt.add_argument("--in-channels", type=int, default=1, choices=[1, 3])
     pt.add_argument("--stride", type=int, default=1, help="dataset subsample stride")
     pt.add_argument("--compute-dtype", default="bfloat16")
@@ -701,7 +769,8 @@ def build_parser() -> argparse.ArgumentParser:
     pt.add_argument("--seed", type=int, default=0)
     pt.add_argument("--device", default="cuda",
                     help="where training runs: cuda (default) or cpu")
-    pt.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pt.add_argument("--data-parallel", action="store_true",
+                    help="one rank per local card, batches sharded over them")
     pt.add_argument("--device-resident", action="store_true",
                     help="keep the whole dataset in device memory (train/fast.py)")
     pt.add_argument("--no-resume", action="store_true")
@@ -735,7 +804,8 @@ def build_parser() -> argparse.ArgumentParser:
     pe.add_argument("--model", required=True, help=".vqmodel artifact")
     pe.add_argument("--grid", default=None, help="grid name filter")
     _codec_options(pe)
-    pe.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pe.add_argument("--data-parallel", action="store_true",
+                    help="shard each device step over all local devices")
     pe.add_argument("--streaming", action="store_true",
                     help="read a .vdb input lazily, O(batch) leaves in host memory; "
                          "the file is byte-identical to the default path's")
@@ -756,7 +826,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write dense volumes over each grid's bounding box")
     pd.add_argument("--vdb", action="store_true",
                     help="write one OpenVDB .vdb file with all grids")
-    pd.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pd.add_argument("--data-parallel", action="store_true",
+                    help="shard each device step over all local devices")
     pd.add_argument("-v", "--verbose", action="store_true")
     pd.set_defaults(func=_cmd_decode)
 
@@ -784,7 +855,8 @@ def build_parser() -> argparse.ArgumentParser:
     pes.add_argument("--grid", default=None)
     pes.add_argument("--pattern", default="frame_{:04d}.vqvdb")
     _codec_options(pes)
-    pes.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pes.add_argument("--data-parallel", action="store_true",
+                     help="shard each device step over all local devices")
     _tier_options(pes, tol=False)
     pes.set_defaults(func=_cmd_encode_seq)
 
@@ -795,7 +867,8 @@ def build_parser() -> argparse.ArgumentParser:
     pds.add_argument("--pattern", default="frame_*.vqvdb")
     pds.add_argument("--vdb", action="store_true", help="one .vdb per frame")
     _codec_options(pds)
-    pds.add_argument("--data-parallel", action="store_true", help="not ported yet")
+    pds.add_argument("--data-parallel", action="store_true",
+                     help="shard each device step over all local devices")
     pds.set_defaults(func=_cmd_decode_seq)
 
     pvi = sub.add_parser("vdbinfo", help="Inspect an OpenVDB .vdb file.")
@@ -855,7 +928,7 @@ def build_parser() -> argparse.ArgumentParser:
     px.add_argument("--num-quantizers", type=int, default=1)
     px.add_argument("--encoder-arch", default="reference",
                     choices=["reference", "packed", "packed_lite", "packed_stem"],
-                    help="encoder graph family (packed_stem is not ported yet)")
+                    help="encoder graph family")
     _device_option(px)
     px.set_defaults(func=_cmd_export_checkpoint)
 
@@ -886,8 +959,9 @@ def main(argv=None) -> int:
     enable_persistent_cache()
     args = build_parser().parse_args(argv)
     try:
-        if getattr(args, "data_parallel", False):
-            return _error("--data-parallel is not ported yet (ROADMAP.md Queue 1 item 13)")
+        if getattr(args, "data_parallel", False) and ":" in args.device:
+            return _error("--data-parallel takes every local device: pass --device "
+                          "cuda or cpu, without an index")
         return args.func(args)
     except BrokenPipeError:
         return 0

@@ -2,9 +2,11 @@
 
 `ModelConfig` keeps the JAX package's fields and validation so a `.vqmodel`
 config block loads unchanged. `CodecConfig` keeps the pipeline knobs that
-mean something on the card; the TPU-only ones (`use_pallas`,
-`use_pallas_dequant`, `split_conv_in`, `donate_buffers`) are gone: on a
-CUDA tensor the codec always runs the hand-written kernels.
+mean something on the card. The JAX package's `use_pallas` and
+`use_pallas_dequant` (its kernel switches: on a CUDA tensor the codec
+always runs the hand-written kernels), `split_conv_in` and `donate_buffers`
+(XLA scheduling and buffer donation) and `param_dtype` (read by no JAX
+code path) have no counterpart here.
 """
 
 from __future__ import annotations
@@ -73,7 +75,10 @@ class CodecConfig:
         size (the ragged tail is zero-padded and cropped on the host).
     compute_dtype: conv/GEMM precision of the model graph.
     fuse_decoder_tail: run up_conv -> pixel shuffle -> final conv as one
-        folded GEMM (ops/tail.py); off runs the three ops in turn.
+        folded GEMM (ops/tail.py).
+    fuse_final_conv: with fuse_decoder_tail off, run the final conv folded
+        before the shuffle (ops/subpixel.py); both off run the three ops in
+        turn.
     fuse_proj_quantize: fold the encoder's 1x1 projection into the
         quantizer score GEMM (score-argmin kernel); off runs the projection
         and then the nearest-code kernel.
@@ -92,6 +97,7 @@ class CodecConfig:
     batch_size: int = 4096
     compute_dtype: str = "bfloat16"
     fuse_decoder_tail: bool = True
+    fuse_final_conv: bool = True
     fuse_proj_quantize: bool = True
     pack_down_conv: bool = True
     fuse_rb16: bool = True

@@ -196,9 +196,25 @@ def residual_block(params: Params, x: torch.Tensor, *, groups: int = 8,
     return x + h * _rounded(scale, x.dtype)
 
 
+# Rows a product of `row_blocks` takes at a time.
+ROW_BLOCK = 1024
+
+
+def row_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (N, K) @ b (K, M), ROW_BLOCK rows of a at a time. cuBLAS picks its
+    kernel, and with it the order of a row's sum, by the shapes: on the
+    card a row's bits from one product moved with N (at 4096, 2048, 1024
+    and 512 rows), and a mesh, whose devices run shards of each batch, wrote
+    other near-tie indices than one device. In blocks, a row gets the same
+    bits in any batch of a multiple of ROW_BLOCK rows."""
+    if a.shape[0] <= ROW_BLOCK:
+        return a @ b
+    return torch.cat([a[i:i + ROW_BLOCK] @ b for i in range(0, a.shape[0], ROW_BLOCK)])
+
+
 def channel_attention(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Squeeze-excite channel gating; bias-free fc1/fc2, mean in f32."""
     y = x.to(torch.float32).mean(dim=(1, 2, 3))  # (B, C)
-    y = torch.relu(y @ params["fc1"]["w"].to(torch.float32))
-    y = torch.sigmoid(y @ params["fc2"]["w"].to(torch.float32))
+    y = torch.relu(row_blocks(y, params["fc1"]["w"].to(torch.float32)))
+    y = torch.sigmoid(row_blocks(y, params["fc2"]["w"].to(torch.float32)))
     return x * y[:, None, None, None, :].to(x.dtype)

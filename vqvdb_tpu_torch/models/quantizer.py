@@ -21,7 +21,12 @@ prepared anew each call) and the codewords through the dequantize kernel;
 both run outside autograd, since the straight-through estimator carries
 the gradient to z alone. The EMA statistics are a one-hot product, as in
 the JAX package: no float atomics, so a step on the card repeats bit for
-bit. Random draws come from the `torch.Generator` the caller passes.
+bit. Under data parallelism (`group=`, the counterpart of `axis_name`) the
+one-hot counts and code sums are summed over the group before the decay
+update, per stage for residual VQ and for the perplexity histogram too, and
+the number of vectors is the group's (the ranks' shards are equal), so every
+rank updates the codebook of the global batch. Random draws come from the
+`torch.Generator` the caller passes.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+from vqvdb_tpu_torch.parallel.distributed import all_reduce_sum, world_size
 
 
 def nearest_scores(flat_z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
@@ -151,20 +158,31 @@ def _perplexity(counts: torch.Tensor, n_vectors: int) -> torch.Tensor:
     return torch.exp(-torch.sum(avg * torch.log(avg + 1e-10)))
 
 
+def _global_stats(counts: torch.Tensor, sums: torch.Tensor, group):
+    """counts and sums summed over `group` in one all-reduce (as they are
+    without one)."""
+    if group is None:
+        return counts, sums
+    return tuple(all_reduce_sum([counts, sums], group))
+
+
 def vq_train_forward(state: VQState, z: torch.Tensor, commitment_cost: float,
-                     decay: float, eps: float
+                     decay: float, eps: float, *, group=None
                      ) -> Tuple[torch.Tensor, VQState, torch.Tensor, torch.Tensor]:
     """Training quantizer pass on channels-last latents z (..., D).
     Returns (quantized with the straight-through estimator, new state,
-    commitment loss, perplexity)."""
+    commitment loss, perplexity). With `group` the EMA statistics and the
+    perplexity histogram are the group's sums; the commitment loss stays
+    the local mean (the step averages it with the other metrics)."""
     d = z.shape[-1]
     flat = z.reshape(-1, d)
     with torch.no_grad():
         idx, quant_flat = _nearest_and_rows(flat, state.embedding, z.dtype)
         quantized = quant_flat.reshape(z.shape)
-        counts, sums = batch_stats(flat.detach(), idx, state.embedding.shape[0])
+        counts, sums = _global_stats(*batch_stats(flat.detach(), idx,
+                                                  state.embedding.shape[0]), group)
         new_state = ema_update(state, counts, sums, decay, eps)
-        perplexity = _perplexity(counts, flat.shape[0])
+        perplexity = _perplexity(counts, flat.shape[0] * world_size(group))
     commitment = commitment_cost * torch.mean(
         torch.square(z.to(torch.float32) - quantized.to(torch.float32)))
     return z + (quantized - z).detach(), new_state, commitment, perplexity
@@ -202,12 +220,13 @@ def init_rvq_state(gen: torch.Generator, num_stages: int, num_embeddings: int,
 
 
 def rvq_train_forward(state: VQState, z: torch.Tensor, commitment_cost: float,
-                      decay: float, eps: float
+                      decay: float, eps: float, *, group=None
                       ) -> Tuple[torch.Tensor, VQState, torch.Tensor, torch.Tensor]:
     """Residual-VQ training pass, same contract as vq_train_forward: each
-    stage runs the EMA update on the residual it codes; one straight-through
-    estimator on the summed codewords; commitment is the stages' mean of
-    beta * MSE(residual, sg[stage codewords]); perplexity of stage 0."""
+    stage runs the EMA update on the residual it codes (its statistics
+    summed over `group`); one straight-through estimator on the summed
+    codewords; commitment is the stages' mean of beta * MSE(residual,
+    sg[stage codewords]); perplexity of stage 0."""
     d = z.shape[-1]
     s_total = state.embedding.shape[0]
     res = z.reshape(-1, d).to(torch.float32)
@@ -217,10 +236,11 @@ def rvq_train_forward(state: VQState, z: torch.Tensor, commitment_cost: float,
         st = _stage(state, s)
         with torch.no_grad():
             idx, q = _nearest_and_rows(res, st.embedding, torch.float32)
-            counts, sums = batch_stats(res.detach(), idx, st.embedding.shape[0])
+            counts, sums = _global_stats(*batch_stats(res.detach(), idx,
+                                                      st.embedding.shape[0]), group)
             stages.append(ema_update(st, counts, sums, decay, eps))
             if s == 0:
-                perplexity0 = _perplexity(counts, res.shape[0])
+                perplexity0 = _perplexity(counts, res.shape[0] * world_size(group))
         commitment = commitment + commitment_cost * torch.mean(torch.square(res - q))
         res = res - q
         q_total = q_total + q

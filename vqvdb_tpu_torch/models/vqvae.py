@@ -1,14 +1,16 @@
 """VQ-VAE graphs and their training half (counterpart of
 `vqvdb_tpu/models/vqvae.py`).
 
-Ported: the packed encoders (`encoder_arch` "packed" and "packed_lite",
-which differ only in the residual block's closer kernel; scalar and vec3
-inputs), the reference encoders (scalar and vec3, with the strided conv as
-it is or folded onto the packed grid), and both decoders. The packed_stem
-encoder is not ported and raises ConfigError; no committed artifact uses it.
+Every encoder of the JAX package: the packed encoders (`encoder_arch`
+"packed" and "packed_lite", which differ only in the residual block's
+closer kernel; "packed_stem", which adds an 8^3 stage before the pack;
+scalar and vec3 inputs), the reference encoders (scalar and vec3, with the
+strided conv as it is or folded onto the packed grid), and both decoders.
 
   packed enc:   s2c(2) (8,8,8,C)->(4,4,4,8C) | conv k3 8C->W GN(8) relu
                 | RB(W) | CA(W) | proj 1x1 W->D        (W = 64 scalar, 128 vec3)
+  packed_stem:  conv k3 C->W/8 GN(W/16) relu | s2c(2) -> (4,4,4,W)
+                | conv k1 W->W GN(8) relu | RB(W) | CA(W) | proj 1x1 W->D
   reference enc, scalar:
                 conv k3 1->16 GN(4) relu | RB(16) | conv k4 s2 16->32
                 | RB(32) | CA(32) | proj 1x1 32->D
@@ -22,11 +24,13 @@ encoder is not ported and raises ConfigError; no committed artifact uses it.
 
 Inference without the codec's folds: `encode_to_indices` /
 `decode_from_indices` (the export validation and the interop tests call
-them). Training: `init_vqvae_params` draws a params tree (encoder / decoder / vq,
-convs OIDHW channels-last, the JAX layout otherwise) from a
-`torch.Generator`; `vqvae_forward` is the training forward with the EMA
-quantizer. Training runs the eager residual block, as the JAX package does:
-the fused-block kernel is an inference path and has no backward.
+them); `decoder_tail_folded` is the tail with the final conv folded before
+the shuffle (`ops/subpixel.py`). Training: `init_vqvae_params` draws a params
+tree (encoder / decoder / vq, convs OIDHW channels-last, the JAX layout
+otherwise) from a `torch.Generator`; `vqvae_forward` is the training
+forward with the EMA quantizer. Training runs the eager residual block, as
+the JAX package does: the fused-block kernel is an inference path and has
+no backward.
 """
 
 from __future__ import annotations
@@ -54,20 +58,36 @@ from vqvdb_tpu_torch.utils.errors import ConfigError
 
 Params = Dict[str, Any]
 
-PORTED_ENCODER_ARCHS = ("reference", "packed", "packed_lite")
+
+def encoder_keys(cfg: ModelConfig) -> Tuple[str, ...]:
+    """The encoder tree's top-level keys for `cfg`, in the tree's order."""
+    if cfg.encoder_arch.startswith("packed"):
+        stem = ("pre_conv", "pre_gn") if cfg.encoder_arch == "packed_stem" else ()
+        return stem + ("stem_conv", "stem_gn", "rb", "attn", "proj")
+    if cfg.variant == "scalar":
+        return ("pre_conv", "pre_gn", "pre_rb", "down", "rb", "attn", "proj")
+    return ("pre_conv", "pre_gn", "pre_rb", "down", "rb1", "rb2", "attn", "proj")
 
 
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ConfigError for a model this package cannot run yet."""
-    if cfg.encoder_arch not in PORTED_ENCODER_ARCHS:
-        raise ConfigError(
-            f"encoder_arch {cfg.encoder_arch!r} is not ported yet (ROADMAP.md "
-            f"Queue 1 item 15; ported: {', '.join(PORTED_ENCODER_ARCHS)})")
+def check_tree(params: Params, cfg: ModelConfig) -> None:
+    """Raise ConfigError when the params' encoder is not the graph `cfg`
+    names (a packed tree under a packed_stem config, say)."""
+    got, want = sorted(params["encoder"]), sorted(encoder_keys(cfg))
+    if got != want:
+        raise ConfigError(f"the encoder tree {got} is not the {cfg.encoder_arch} "
+                          f"{cfg.variant} encoder {want}")
 
 
 def _encoder_features_packed(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Packed-encoder features: (B,8,8,8,C) -> (B,4,4,4,W)."""
-    h = space_to_channel(x, 2)
+    """Packed-encoder features: (B,8,8,8,C) -> (B,4,4,4,W). packed_stem runs
+    its 8^3 stage (k3 conv C -> W/8, GroupNorm of W/16 groups, relu) first,
+    so the pack lands on W channels and the stem conv is k1."""
+    h = x
+    if "pre_conv" in params:
+        h = blocks.conv3d(params["pre_conv"], h, padding=1)
+        h = torch.relu(blocks.group_norm(params["pre_gn"], h,
+                                         params["pre_gn"]["scale"].shape[0] // 2))
+    h = space_to_channel(h, 2)
     h = blocks.conv3d(params["stem_conv"], h,
                       padding=blocks.same_padding(params["stem_conv"]))
     h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
@@ -104,7 +124,6 @@ def encoder_features(params: Params, x: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     """Encoder up to (excluding) the 1x1 projection:
     (B,8,8,8,C) -> (B,4,4,4,32|64|128)."""
-    check_ported(cfg)
     if cfg.encoder_arch.startswith("packed"):
         return _encoder_features_packed(params, x)
     h = _reference_pre(params, x, cfg)
@@ -127,7 +146,6 @@ def encoder_features_packed_down(params: Params, folded_down: Params,
     ops/packed.py::fold_strided_conv; an exact rewrite). `fuse_rb16` runs
     the scalar variant's 16-channel residual block as one kernel
     (ops/fused_rb.py)."""
-    check_ported(cfg)
     h = _reference_pre(params, x, cfg,
                        fuse_rb16=fuse_rb16 and cfg.variant == "scalar")
     h = blocks.conv3d(folded_down, space_to_channel(h, 2), padding=1)
@@ -167,6 +185,16 @@ def decoder_tail(params: Params, h: torch.Tensor,
     return head_activation(h, cfg)
 
 
+def decoder_tail_folded(up_conv: Params, folded_final: Params, h: torch.Tensor,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """decoder_tail with the final conv folded before the shuffle
+    (`ops/subpixel.py::fold_final_conv`): up_conv -> k3 conv on the 4^3
+    grid (C_out * 8 channels) -> pixel shuffle -> head activation."""
+    h = blocks.conv3d(up_conv, h, padding=1)
+    y = blocks.conv3d(folded_final, h, padding=1)
+    return head_activation(blocks.pixel_shuffle_3d(y, 2), cfg)
+
+
 def decoder_apply(params: Params, z: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """z (B,4,4,4,D) -> reconstruction (B,8,8,8,C) f32."""
@@ -188,13 +216,20 @@ def _init_encoder(gen: torch.Generator, cfg: ModelConfig, dtype) -> Params:
     if cfg.encoder_arch.startswith("packed"):
         w = packed_encoder_width(cfg)
         kernel2 = 1 if cfg.encoder_arch == "packed_lite" else 3
-        return {
-            "stem_conv": b.init_conv3d(gen, c * 8, w, 3, dtype=dtype),
+        out: Params = {}
+        stem_in, stem_kernel = c * 8, 3
+        if cfg.encoder_arch == "packed_stem":
+            out["pre_conv"] = b.init_conv3d(gen, c, w // 8, 3, dtype=dtype)
+            out["pre_gn"] = b.init_group_norm(w // 8, dtype, gen.device)
+            stem_in, stem_kernel = w, 1
+        out.update({
+            "stem_conv": b.init_conv3d(gen, stem_in, w, stem_kernel, dtype=dtype),
             "stem_gn": b.init_group_norm(w, dtype, gen.device),
             "rb": b.init_residual_block(gen, w, dtype, kernel2=kernel2),
             "attn": b.init_channel_attention(gen, w, dtype=dtype),
             "proj": b.init_conv3d(gen, w, cfg.embedding_dim, 1, dtype=dtype),
-        }
+        })
+        return out
     if cfg.variant == "scalar":
         return {
             "pre_conv": b.init_conv3d(gen, c, 16, 3, dtype=dtype),
@@ -239,7 +274,6 @@ def init_vqvae_params(gen: torch.Generator, cfg: ModelConfig,
                       dtype=torch.float32) -> Params:
     """A params tree {encoder, decoder, vq} drawn from `gen`, on its device,
     with the JAX package's keys in its order."""
-    check_ported(cfg)
     enc = _init_encoder(gen, cfg, dtype)
     dec = _init_decoder(gen, cfg, dtype)
     if cfg.num_quantizers > 1:
@@ -335,11 +369,11 @@ def decode_from_indices(params: Params, indices: torch.Tensor, cfg: ModelConfig,
     return torch.cat(out) if len(out) != 1 else out[0]
 
 
-def quantize_train_forward(vq: VQState, z: torch.Tensor, cfg: ModelConfig):
+def quantize_train_forward(vq: VQState, z: torch.Tensor, cfg: ModelConfig, *, group=None):
     """Single-stage EMA or residual-VQ training pass (vq_train_forward's
-    contract)."""
+    contract; `group` sums the EMA statistics over a process group)."""
     fwd = rvq_train_forward if cfg.num_quantizers > 1 else vq_train_forward
-    return fwd(vq, z, cfg.commitment_cost, cfg.ema_decay, cfg.ema_eps)
+    return fwd(vq, z, cfg.commitment_cost, cfg.ema_decay, cfg.ema_eps, group=group)
 
 
 def reset_dead(gen: torch.Generator, vq: VQState, flat_z: torch.Tensor,

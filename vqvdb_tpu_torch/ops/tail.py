@@ -15,6 +15,9 @@ are the 8^3 x C_out voxels in the same order.
 The GEMM is a plain large product, so it stays `torch.matmul`: the
 features and the operator are rounded to the compute dtype and then
 multiplied in f32, which is the JAX package's bf16 x bf16 -> f32 product.
+It runs on blocks of rows (`blocks.row_blocks`), so that a row's leaves do
+not depend on how many rows share its batch (a mesh's devices decode
+shards of it).
 """
 
 from __future__ import annotations
@@ -58,6 +61,6 @@ def apply_decoder_tail(folded: Dict, h: torch.Tensor, cfg: ModelConfig
     """h (B,4,4,4,C_in) -> head activations (B,8,8,8,C_out) f32."""
     b = h.shape[0]
     k = folded["k"].to(h.dtype).to(torch.float32)
-    logits = h.reshape(b, -1).to(torch.float32) @ k + folded["b"]
+    logits = blocks.row_blocks(h.reshape(b, -1).to(torch.float32), k) + folded["b"]
     logits = logits.reshape(b, LEAF_DIM, LEAF_DIM, LEAF_DIM, cfg.in_channels)
     return head_activation(logits, cfg)

@@ -18,8 +18,10 @@ Encode:  leaves -> encoder features -> score-argmin kernel (the 1x1
          Residual-VQ models (S stages): projection -> per stage the
          nearest-code and dequantize kernels -> indices [B,4,4,4,S].
 Decode:  indices -> dequantize kernel (once per stage, rows summed) ->
-         decoder pre-tail -> folded tail GEMM + sigmoid / tanh (or the
-         three tail ops with `fuse_decoder_tail=False`).
+         decoder pre-tail -> folded tail GEMM + sigmoid / tanh. With
+         `fuse_decoder_tail=False`: up_conv -> the final conv folded before
+         the shuffle (`fuse_final_conv`, ops/subpixel.py), or the three
+         tail ops with both off.
 
 Indices are u8 for K <= 256; for larger codebooks u16 on the host (int16
 bits in the pinned buffers) and int32 on the card. Files: v3 by default,
@@ -29,13 +31,23 @@ correction is measured against the decode that `decompress` repeats).
 `decode_stream` / `decompress` select grids by name and leaves by bounding
 box; `compress_stream` encodes lazily read leaf streams. Each batch's padding
 and device dispatch are timed under `host/pad` and `device/dispatch` in
-`VQCodec.profiler` (`utils/profiler.py`). Not ported yet: the packed_stem
-encoder and the mesh.
+`VQCodec.profiler` (`utils/profiler.py`).
+
+With a mesh (`parallel/mesh.py`) every padded batch is cut into the mesh's
+shards; each local device runs the same steps (the same kernel launches) on
+its shard, with its own copy of the weights and fold constants, its own
+pinned buffer pair and its own stream, and with several devices the
+shards' rows go back into the batch through `native_io.copy_into`. Shards
+wholly in the padded tail are skipped. On a multi-process mesh each rank
+runs its shard of every global batch and all-gathers the results, so every
+rank holds the whole batch. Files are byte-identical to the single-device
+codec's.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import time
 from pathlib import Path
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
@@ -48,9 +60,10 @@ from vqvdb_tpu_torch.core.weights import DeviceLike, params_from_jax
 from vqvdb_tpu_torch.format.vqvdb import GridMetadata, VqvdbReader, VqvdbWriter
 from vqvdb_tpu_torch.models.quantizer import rvq_dequantize, rvq_indices
 from vqvdb_tpu_torch.models.vqvae import (
-    check_ported,
-    decoder_apply,
+    check_tree,
     decoder_pre_tail,
+    decoder_tail,
+    decoder_tail_folded,
     encoder_apply,
     encoder_features,
     encoder_features_packed_down,
@@ -64,7 +77,11 @@ from vqvdb_tpu_torch.ops.quantize import (
     prepare_codebook,
     prepare_scores,
 )
+from vqvdb_tpu_torch.ops.subpixel import fold_final_conv
 from vqvdb_tpu_torch.ops.tail import apply_decoder_tail, fold_decoder_tail
+from vqvdb_tpu_torch.parallel.distributed import all_gather_rows
+from vqvdb_tpu_torch.parallel.mesh import Mesh, make_sharded_encode, replicate, shard_batch
+from vqvdb_tpu_torch.runtime.native_io import copy_into
 from vqvdb_tpu_torch.runtime.residual import RESIDUAL_MODES, apply_residual, quantize_residual
 from vqvdb_tpu_torch.utils.errors import ModelMismatchError
 from vqvdb_tpu_torch.utils.profiler import Profiler
@@ -74,18 +91,29 @@ PIPELINE_DEPTH = 2
 
 
 class _Slot:
-    """One pipeline stage's host buffers (pinned on the card) and the event
-    that marks its device->host copies done. Each buffer is given as (shape,
-    (torch dtype, numpy dtype)): a u16 index buffer is int16 in torch, and
-    `inp_dtype` / the `outs_np` views carry the numpy dtype."""
+    """One device's host buffers of a pipeline stage (pinned on the card) and
+    the event that marks its device->host copies done. Each buffer is given
+    as (shape, (torch dtype, numpy dtype)): a u16 index buffer is int16 in
+    torch, and `inp_dtype` / the `outs_np` views carry the numpy dtype."""
 
     def __init__(self, inp, outs, device: torch.device):
+        self.device = device
         pin = device.type == "cuda"
         self.inp = torch.empty(inp[0], dtype=inp[1][0], pin_memory=pin)
         self.inp_dtype = np.dtype(inp[1][1])
         self.outs = [torch.empty(shape, dtype=dt[0], pin_memory=pin) for shape, dt in outs]
         self.outs_np = [t.numpy().view(dt[1]) for t, (_, dt) in zip(self.outs, outs)]
         self.done = torch.cuda.Event() if pin else None
+
+
+class _Stage:
+    """One pipeline stage: a `_Slot` per device, and with several local
+    devices the host arrays (`whole`, given as the slots' outputs are) that
+    their shards' rows are copied back into."""
+
+    def __init__(self, slots: List[_Slot], whole=None):
+        self.slots = slots
+        self.whole = None if whole is None else [np.empty(shape, dt[1]) for shape, dt in whole]
 
 
 class VQCodec:
@@ -102,22 +130,33 @@ class VQCodec:
 
     def __init__(self, params: Dict, model_config: ModelConfig,
                  codec_config: Optional[CodecConfig] = None,
-                 device: DeviceLike = None, profiler: Optional[Profiler] = None) -> None:
-        check_ported(model_config)
+                 device: DeviceLike = None, profiler: Optional[Profiler] = None,
+                 mesh: Optional[Mesh] = None) -> None:
         self.mcfg = model_config
         self.ccfg = codec_config or CodecConfig()
         # Stage timers (host wall clock) of the pipelined batches: pass one
         # to aggregate across codecs, or read codec.profiler.report().
         self.profiler = profiler if profiler is not None else Profiler()
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and torch.device(device).type != mesh.devices[0].type:
+                raise ValueError(f"device {device} is not the mesh's {mesh.devices[0]}")
+            device = mesh.devices[0]
+            mesh.shard_rows(self.ccfg.batch_size)  # ValueError unless it divides
         self.params = params_from_jax(params, model_config, device)
+        check_tree(self.params, model_config)
         self.device = self.params["vq"]["embedding"].device
         self.dtype = self.ccfg.torch_dtype
         # The decode codebook is cast to the compute dtype before the lookup.
         self._codebook = self.params["vq"]["embedding"].to(self.dtype)
-        self._folded_tail = None
+        self._folded_tail = self._folded_final = None
         if self.ccfg.fuse_decoder_tail:
             self._folded_tail = fold_decoder_tail(self.params["decoder"],
                                                   self.mcfg)
+        elif self.ccfg.fuse_final_conv:
+            fin = params["decoder"]["final"]
+            self._folded_final = {k: v.to(self.device) for k, v in fold_final_conv(
+                np.asarray(fin["w"]), np.asarray(fin["b"])).items()}
         # Residual-VQ needs the latent itself for its later stages, so the
         # projection folds into the scores only for a single-stage model.
         self._score_mc = None
@@ -146,7 +185,18 @@ class VQCodec:
             self._folded_down = {
                 k: v.to(self.device) for k, v in fold_strided_conv(
                     np.asarray(down["w"]), np.asarray(down["b"])).items()}
-        self._slots: Dict[str, List[_Slot]] = {}
+        # What the device steps read, per device: on a mesh each local device
+        # holds a copy of the first device's bits.
+        consts = {"params": self.params, "codebook": self._codebook,
+                  "folded_tail": self._folded_tail, "folded_final": self._folded_final,
+                  "score_prep": self._score_prep, "stage_prep": self._stage_prep,
+                  "folded_down": self._folded_down}
+        self._consts = {self.device: consts}
+        if mesh is not None:
+            for dev, rep in zip(mesh.devices, replicate(consts, mesh)):
+                self._consts.setdefault(dev, rep)
+            mesh.synchronize()
+        self._slots: Dict[str, list] = {}
         # (torch, numpy) dtypes of host index buffers: u8, or u16 as int16 bits
         self._host_idx = ((torch.uint8, np.uint8) if self.mcfg.num_embeddings <= 256
                           else (torch.int16, np.uint16))
@@ -155,58 +205,67 @@ class VQCodec:
     def _features(self, x: torch.Tensor) -> torch.Tensor:
         """Encoder features before the folded projection, as the encode
         step takes them: [B,8,8,8,C] -> [B,4,4,4,F]."""
-        enc = self.params["encoder"]
-        if self._folded_down is not None:
+        r = self._consts[x.device]
+        enc = r["params"]["encoder"]
+        if r["folded_down"] is not None:
             return encoder_features_packed_down(
-                enc, self._folded_down, x, self.mcfg,
+                enc, r["folded_down"], x, self.mcfg,
                 fuse_rb16=self.ccfg.fuse_rb16)
         return encoder_features(enc, x, self.mcfg)
 
     @torch.inference_mode()
     def _encode_step(self, leaves: torch.Tensor) -> torch.Tensor:
         """[B,8,8,8,C] f32 -> [B,4,4,4] (or [B,4,4,4,S] residual-VQ) indices:
-        uint8 for K <= 256, else int32."""
+        uint8 for K <= 256, else int32; on the leaves' device."""
+        r = self._consts[leaves.device]
         x = leaves.to(self.dtype)
         b = x.shape[0]
-        enc = self.params["encoder"]
-        if self._score_mc is not None:
+        if r["score_prep"] is not None:
             h = self._features(x)
-            idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), self._score_prep)
+            idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), r["score_prep"])
         else:
-            z = encoder_apply(enc, x, self.mcfg)
+            z = encoder_apply(r["params"]["encoder"], x, self.mcfg)
             flat = z.reshape(-1, self.mcfg.embedding_dim).to(torch.float32)
             if self.mcfg.num_quantizers > 1:
-                idx = rvq_indices(flat, self.params["vq"]["embedding"],
-                                  self._stage_prep)
+                idx = rvq_indices(flat, r["params"]["vq"]["embedding"], r["stage_prep"])
             else:
-                idx = fused_nearest_indices(flat, self._stage_prep[0])
+                idx = fused_nearest_indices(flat, r["stage_prep"][0])
         idx = idx.reshape((b,) + self.mcfg.index_shape)
         return idx.to(torch.uint8) if self.mcfg.num_embeddings <= 256 else idx
 
     @torch.inference_mode()
     def _decode_step(self, indices: torch.Tensor) -> torch.Tensor:
         """[B,4,4,4] (or [B,4,4,4,S] residual-VQ) uint8 or int32 indices ->
-        [B,8,8,8,C] f32."""
+        [B,8,8,8,C] f32, on the indices' device."""
+        r = self._consts[indices.device]
         b = indices.shape[0]
         if self.mcfg.num_quantizers > 1:
             z = rvq_dequantize(indices.reshape(-1, self.mcfg.num_quantizers),
-                               self._codebook)
+                               r["codebook"])
         else:
-            z = fused_dequantize(indices.reshape(-1), self._codebook)
+            z = fused_dequantize(indices.reshape(-1), r["codebook"])
         z = z.reshape((b,) + self.mcfg.latent_shape + (self.mcfg.embedding_dim,))
-        dec = self.params["decoder"]
-        if self._folded_tail is not None:
-            h = decoder_pre_tail(dec, z, self.mcfg)
-            return apply_decoder_tail(self._folded_tail, h, self.mcfg)
-        return decoder_apply(dec, z, self.mcfg)
+        dec = r["params"]["decoder"]
+        h = decoder_pre_tail(dec, z, self.mcfg)
+        if r["folded_tail"] is not None:
+            return apply_decoder_tail(r["folded_tail"], h, self.mcfg)
+        if r["folded_final"] is not None:
+            return decoder_tail_folded(dec["up_conv"], r["folded_final"], h, self.mcfg)
+        return decoder_tail(dec, h, self.mcfg)
 
     # -- latent-shape self-check -----------------------------------------
     def check_latent_shape(self) -> Tuple[int, ...]:
-        """Run a zero leaf through the encoder; the index shape must match
-        the config."""
-        probe = torch.zeros((1, LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels),
-                            dtype=torch.float32, device=self.device)
-        got = tuple(self._encode_step(probe).shape[1:])
+        """Run zero leaves through the encoder, one per shard of the mesh
+        (one without a mesh); the index shape must match the config."""
+        n = 1 if self.mesh is None else self.mesh.size
+        probe = np.zeros((n, LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels),
+                         np.float32)
+        if self.mesh is None:
+            out = self._encode_step(torch.from_numpy(probe).to(self.device))
+        else:
+            (out, *_) = make_sharded_encode(self.mesh, self, replicate_out=True)(
+                shard_batch(probe, self.mesh))
+        got = tuple(out.shape[1:])
         if got != self.mcfg.index_shape:
             raise ModelMismatchError(
                 f"latent-shape probe mismatch: model produced {got}, "
@@ -214,38 +273,68 @@ class VQCodec:
         return got
 
     # -- pipelined batches -----------------------------------------------
-    def _slots_for(self, kind: str) -> List[_Slot]:
+    def _slots_for(self, kind: str) -> List["_Stage"]:
         if kind not in self._slots:
             bs = self.ccfg.batch_size
-            leaf = ((bs, LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels),
-                    (torch.float32, np.float32))
-            idx = ((bs,) + self.mcfg.index_shape, self._host_idx)
-            inp, outs = {"encode": (leaf, [idx]), "decode": (idx, [leaf]),
-                         "residual": (leaf, [idx, leaf])}[kind]
-            self._slots[kind] = [_Slot(inp, outs, self.device)
+            mesh = self.mesh
+            rows_in = bs if mesh is None else mesh.shard_rows(bs)
+            # A multi-process mesh gathers the whole batch onto each rank.
+            rows_out = bs if mesh is None or mesh.multiprocess else rows_in
+
+            def leaf(n):
+                return ((n, LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels),
+                        (torch.float32, np.float32))
+
+            def idx(n):
+                return ((n,) + self.mcfg.index_shape, self._host_idx)
+
+            inp, outs = {"encode": (leaf(rows_in), [idx(rows_out)]),
+                         "decode": (idx(rows_in), [leaf(rows_out)]),
+                         "residual": (leaf(rows_in), [idx(rows_out), leaf(rows_out)])}[kind]
+            devices = [self.device] if mesh is None else list(mesh.devices)
+            # The shards of one process's devices come back into a host batch
+            # (one device's shard, or a gathered batch, is the batch itself).
+            whole = None
+            if mesh is not None and mesh.local_size > 1:
+                whole = [((bs,) + shape[1:], dt) for shape, dt in outs]
+            self._slots[kind] = [_Stage([_Slot(inp, outs, d) for d in devices], whole)
                                  for _ in range(PIPELINE_DEPTH)]
         return self._slots[kind]
 
     def _steps(self, kind: str, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
-        """A staged batch through the device step(s) of `kind`: "encode"
-        (leaves -> indices), "decode" (indices -> leaves) or "residual"
-        (leaves -> indices, and those indices, still on the device, through
-        the decode step as `decompress` runs it)."""
+        """A staged batch (or shard) through the device step(s) of `kind`:
+        "encode" (leaves -> indices), "decode" (indices -> leaves) or
+        "residual" (leaves -> indices, and those indices, still on the
+        device, through the decode step as `decompress` runs it). On a
+        multi-process mesh each output is all-gathered over the group."""
+        mesh = self.mesh
+        group = mesh.group if mesh is not None and mesh.multiprocess else None
+
+        def gather(t):
+            return all_gather_rows(t, group)
+
         if kind == "decode":
             if x.dtype == torch.int16:  # u16 bits
                 x = x.to(torch.int32) & 0xFFFF
-            return (self._decode_step(x),)
+            return (gather(self._decode_step(x)),)
         idx = self._encode_step(x)
-        host = idx.to(self._host_idx[0])
-        return (host,) if kind == "encode" else (host, self._decode_step(idx))
+        host = gather(idx).to(self._host_idx[0])
+        return (host,) if kind == "encode" else (host, gather(self._decode_step(idx)))
 
     def _pipelined(self, kind: str, batches: Iterable[Tuple[np.ndarray, object]]
                    ) -> Iterator[Tuple[List[np.ndarray], object, int]]:
         """Run each (host batch of <= batch_size rows, tag) through the
         device steps of `kind` (`_steps`); yields (host result rows per
         output, tag, n). A yielded array is a view of a reused buffer: use
-        it before the next one."""
-        slots = self._slots_for(kind)
+        it before the next one. On a mesh local device j takes rows
+        [(first_shard + j) * B/size, ...) of the padded batch on its own
+        stream; a shard wholly past the batch's rows is not run, except on a
+        multi-process mesh, whose ranks all take part in each gather."""
+        stages = self._slots_for(kind)
+        mesh = self.mesh
+        per = self.ccfg.batch_size if mesh is None else mesh.shard_rows(self.ccfg.batch_size)
+        first = 0 if mesh is None else mesh.first_shard
+        every = mesh is not None and mesh.multiprocess
         cuda = self.device.type == "cuda"
         pending: collections.deque = collections.deque()
         dispatched = 0
@@ -253,25 +342,35 @@ class VQCodec:
             n = chunk.shape[0]
             if n == 0:
                 continue
-            # A slot is reused only after _collect has waited on its event.
-            slot = slots[dispatched % PIPELINE_DEPTH]
+            # A stage is reused only after _collect has waited on its events.
+            stage = stages[dispatched % PIPELINE_DEPTH]
             dispatched += 1
-            src = np.ascontiguousarray(chunk, slot.inp_dtype)
+            src = np.ascontiguousarray(chunk, stage.slots[0].inp_dtype)
             if not src.flags.writeable:  # a frame read from a file
                 src = src.copy()
-            # torch copies (in threads) what numpy would copy in one
-            slot.inp[:n].copy_(torch.from_numpy(src.view(np.int16) if src.dtype == np.uint16
-                                                else src))
-            if n < slot.inp.shape[0]:
+            src = torch.from_numpy(src.view(np.int16) if src.dtype == np.uint16 else src)
+            live = []
+            for j, slot in enumerate(stage.slots):
+                r0 = (first + j) * per
+                rows = max(0, min(per, n - r0))
+                if rows or every:
+                    # torch copies (in threads) what numpy would copy in one
+                    slot.inp[:rows].copy_(src[r0:r0 + rows])
+                    live.append((j, slot, r0, rows))
+            if any(rows < per for _, _, _, rows in live):
                 with self.profiler("host/pad"):
-                    slot.inp[n:].zero_()
+                    for _, slot, _, rows in live:
+                        slot.inp[rows:].zero_()
             with self.profiler("device/dispatch"):
-                results = self._steps(kind, slot.inp.to(self.device, non_blocking=True))
-                for out, res in zip(slot.outs, results):
-                    out.copy_(res, non_blocking=cuda)
-                if cuda:
-                    slot.done.record()
-            pending.append((slot, tag, n))
+                for j, slot, _, _ in live:
+                    with (mesh.stream(j) if mesh is not None else contextlib.nullcontext()):
+                        dev = slot.device
+                        results = self._steps(kind, slot.inp.to(dev, non_blocking=True))
+                        for out, res in zip(slot.outs, results):
+                            out.copy_(res, non_blocking=cuda)
+                        if cuda:
+                            slot.done.record()
+            pending.append((stage, live, tag, n))
             if len(pending) >= PIPELINE_DEPTH:
                 yield self._collect(pending.popleft())
         while pending:
@@ -279,10 +378,19 @@ class VQCodec:
 
     @staticmethod
     def _collect(item) -> Tuple[List[np.ndarray], object, int]:
-        slot, tag, n = item
-        if slot.done is not None:
-            slot.done.synchronize()
-        return [a[:n] for a in slot.outs_np], tag, n
+        stage, live, tag, n = item
+        for _, slot, _, _ in live:
+            if slot.done is not None:
+                slot.done.synchronize()
+        if stage.whole is None:  # one slot holds the batch
+            return [a[:n] for a in live[0][1].outs_np], tag, n
+        for _, slot, r0, rows in live:
+            for dst, got in zip(stage.whole, slot.outs_np):
+                # One thread: on an 8-core H100 host, the hardware's count of
+                # threads spawned per copy took 2.6x one thread's time for an
+                # 8 MiB batch (chip_smoke.py phase 16 times it: PERF.md).
+                copy_into(dst[r0:r0 + rows], got[:rows], threads=1)
+        return [a[:n] for a in stage.whole], tag, n
 
     def _batches(self, data: np.ndarray):
         bs = self.ccfg.batch_size

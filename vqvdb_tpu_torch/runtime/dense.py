@@ -1,5 +1,5 @@
 """Dense volumes on the device <-> `.vqvdb` (counterpart of
-`vqvdb_tpu/runtime/dense.py`, for one device).
+`vqvdb_tpu/runtime/dense.py`).
 
 The sparse paths (`VQCodec.decompress` + `LeafGrid.to_dense`, and
 `LeafGrid.from_dense` + `VQCodec.compress`) move every leaf across the
@@ -35,8 +35,18 @@ the bit equality on which the int8 bound rests.
 
 Memory: the block buffer and the dense output each take X*Y*Z*C*4 bytes
 (302 MB for a 512 x 512 x 288 scalar volume); `encode_from_dense` makes one
-block-major copy of its input. The data-parallel (mesh) form of both paths
-is not ported yet and raises (ROADMAP.md Queue 1 item 13).
+block-major copy of its input.
+
+With a mesh codec (one process) the volume is cut into x-slabs of leaf
+blocks, ceil(nx / size) block planes each: a leaf belongs to the device
+that owns its slab (`owner = bi[:, 0] // nx_local`). Each device decodes and
+scatters only its slab's leaves (v6 correction included) into its own slab
+buffer, in steps of `batch_size`, and the slabs are joined on the codec's
+first device; encode reduces activity and encodes active blocks slab by
+slab on the slab's device. Slabs are x-major, so the joined volume and the
+origin-major order of the encoded leaves are the single-device path's, bit
+for bit. A multi-process mesh raises: these paths build host-global inputs;
+use the file codec there.
 """
 
 from __future__ import annotations
@@ -54,10 +64,17 @@ from vqvdb_tpu_torch.utils.errors import ModelMismatchError, VqvdbError
 PathLike = Union[str, Path]
 
 
-def _no_mesh(codec) -> None:
-    if getattr(codec, "mesh", None) is not None:
-        raise VqvdbError("the dense paths run on one device; the mesh form is not "
-                         "ported yet (ROADMAP.md Queue 1 item 13)")
+def _mesh_devices(codec) -> List[torch.device]:
+    """The devices the codec's dense paths run on, slab order: its mesh's,
+    or its own device alone."""
+    mesh = codec.mesh
+    if mesh is None:
+        return [codec.device]
+    if mesh.multiprocess:
+        raise VqvdbError("the dense paths build host-global inputs and run on a mesh "
+                         "of one process; in a multi-process run use the file codec "
+                         "paths or a mesh of this process's devices")
+    return list(mesh.devices)
 
 
 def _block_plan(origins: np.ndarray, lo: Optional[np.ndarray] = None,
@@ -169,33 +186,53 @@ def decode_to_dense(
     it is the origins' bounding box. Voxels of no leaf hold `background`.
     scales / residual: a v6 correction stream (per-leaf f32 scales + int8
     rows, or f16 rows), applied on the device with the host's arithmetic.
+    With a mesh codec each device decodes its x-slab's leaves (module
+    docstring); the volume is joined on the codec's first device.
     """
-    _no_mesh(codec)
+    devices = _mesh_devices(codec)
     indices = np.ascontiguousarray(indices, np.dtype(codec.mcfg.index_dtype))
     mode = _residual_mode(scales, residual)
-    lo_arr, bdims, bids, _ = _block_plan(origins, None if lo is None else np.asarray(lo),
-                                         shape)
+    lo_arr, bdims, bids, bi = _block_plan(origins, None if lo is None else np.asarray(lo),
+                                          shape)
     c = codec.mcfg.in_channels
     dev = codec.device
     if indices.shape[0] == 0:
         return torch.zeros((0, 0, 0, c), dtype=torch.float32, device=dev), lo_arr
     if indices.shape[0] != bids.shape[0]:
         raise VqvdbError(f"{indices.shape[0]} index rows vs {bids.shape[0]} origins")
-    n_blocks = int(np.prod(bdims))
     bs = codec.ccfg.batch_size
-    idx_steps = _upload(_pad_steps(indices, bs, 0), dev)
-    # Padded rows scatter into the last row (index n_blocks), which is dropped.
-    bid_steps = _upload(_pad_steps(bids, bs, n_blocks), dev)
-    sc_steps = res_steps = None
-    if mode == "int8":
-        sc_steps = _upload(_pad_steps(np.ascontiguousarray(scales, np.float32), bs, 0), dev)
+    nx, ny, nz = bdims
+    nx_local = -(-nx // len(devices))
+    n_local = nx_local * ny * nz
+    owner = bi[:, 0] // nx_local
+    local_bids = bids - owner.astype(np.int64) * n_local
     if mode is not None:
         res = np.ascontiguousarray(residual).reshape(residual.shape[0], -1)
-        res_steps = _upload(_pad_steps(res, bs, 0), dev)
-    buf = torch.full((n_blocks + 1, LEAF_DIM ** 3 * c), float(background),
-                     dtype=torch.float32, device=dev)
-    _scan_scatter(codec, buf, idx_steps, bid_steps, sc_steps, res_steps)
-    return _blocks_to_dense(buf, n_blocks, bdims, c), lo_arr
+    slabs = []
+    for k, d in enumerate(devices):
+        mine = owner == k
+
+        def take(a):  # this slab's rows (all of them on one device: no copy)
+            return a if len(devices) == 1 else a[mine]
+
+        buf = torch.full((n_local + 1, LEAF_DIM ** 3 * c), float(background),
+                         dtype=torch.float32, device=d)
+        if mine.any():
+            sc_steps = res_steps = None
+            if mode == "int8":
+                sc_steps = _upload(_pad_steps(take(np.ascontiguousarray(scales, np.float32)),
+                                              bs, 0), d)
+            if mode is not None:
+                res_steps = _upload(_pad_steps(take(res), bs, 0), d)
+            # Padded rows scatter into the last row (n_local), which is dropped.
+            _scan_scatter(codec, buf, _upload(_pad_steps(take(indices), bs, 0), d),
+                          _upload(_pad_steps(take(local_bids), bs, n_local), d),
+                          sc_steps, res_steps)
+        slabs.append(buf[:n_local])
+    blocks = slabs[0] if len(slabs) == 1 else torch.cat([t.to(dev) for t in slabs])
+    dense = _blocks_to_dense(blocks, nx_local * len(devices) * ny * nz,
+                             (nx_local * len(devices), ny, nz), c)
+    return dense[:nx * LEAF_DIM], lo_arr
 
 
 @torch.no_grad()
@@ -214,8 +251,9 @@ def encode_from_dense(
     `tolerance`, as `LeafGrid.from_dense` decides; an extent that is no
     multiple of 8 is padded with `background`. Returns (indices [N,4,4,4]
     in the model's index dtype, origins [N,3] int32) as host arrays, in the
-    origin-major order of `LeafGrid.from_dense`."""
-    _no_mesh(codec)
+    origin-major order of `LeafGrid.from_dense`. With a mesh codec each
+    device reduces and encodes its x-slab (module docstring)."""
+    devices = _mesh_devices(codec)
     dev = codec.device
     if isinstance(dense, torch.Tensor):
         if dense.device != dev:
@@ -230,12 +268,18 @@ def encode_from_dense(
                          f"{codec.mcfg.in_channels}")
     ld = LEAF_DIM
     pads = [(-d) % ld for d in vol.shape[:3]]
+    # x is padded further, so that every device owns an equal slab.
+    nx_local = -(-(vol.shape[0] + pads[0]) // ld // len(devices))
+    pads[0] = nx_local * len(devices) * ld - vol.shape[0]
     if any(pads):
         vol = torch.nn.functional.pad(vol, (0, 0, 0, pads[2], 0, pads[1], 0, pads[0]),
                                       value=float(background))
     bdims = tuple(d // ld for d in vol.shape[:3])
-    rows = _to_blocks(vol)
-    active = ((rows - background).abs().amax(dim=1) > tolerance).cpu().numpy()
+    slab_x = nx_local * ld
+    rows = [_to_blocks(vol[k * slab_x:(k + 1) * slab_x].to(d))
+            for k, d in enumerate(devices)]
+    active = np.concatenate([((r - background).abs().amax(dim=1) > tolerance).cpu().numpy()
+                             for r in rows])
     (flat,) = np.nonzero(active)
     bi = np.stack(np.unravel_index(flat, bdims), axis=1)
     origins = (bi.astype(np.int32) * ld + np.asarray(origin, np.int32)).astype(np.int32)
@@ -245,14 +289,21 @@ def encode_from_dense(
         return np.zeros((0,) + codec.mcfg.index_shape, index_dtype), origins
     bs = codec.ccfg.batch_size
     c = codec.mcfg.in_channels
-    ids = torch.from_numpy(flat.astype(np.int64)).to(dev)
-    out = []
-    for s in range(0, n, bs):
-        batch = rows.index_select(0, ids[s: s + bs])
-        if batch.shape[0] < bs:  # zero rows, as compress pads its last batch
-            batch = torch.cat([batch, batch.new_zeros((bs - batch.shape[0], batch.shape[1]))])
-        out.append(codec._encode_step(batch.view(bs, ld, ld, ld, c)))
-    idx = torch.cat(out)[:n].cpu().numpy()
+    n_local = rows[0].shape[0]
+    owner = flat // n_local
+    per_slab = []  # every slab's steps are enqueued before any result comes back
+    for k, d in enumerate(devices):
+        ids = torch.from_numpy((flat[owner == k] - k * n_local).astype(np.int64)).to(d)
+        out = []
+        for s in range(0, ids.shape[0], bs):
+            batch = rows[k].index_select(0, ids[s: s + bs])
+            if batch.shape[0] < bs:  # zero rows, as compress pads its last batch
+                batch = torch.cat([batch, batch.new_zeros((bs - batch.shape[0],
+                                                           batch.shape[1]))])
+            out.append(codec._encode_step(batch.view(bs, ld, ld, ld, c)))
+        if out:
+            per_slab.append(torch.cat(out)[:ids.shape[0]])
+    idx = np.concatenate([t.cpu().numpy() for t in per_slab])
     return idx.astype(index_dtype), origins
 
 
@@ -262,7 +313,6 @@ def decode_file_to_dense(codec, in_path: PathLike, *, background: float = 0.0
     on the codec's device: [{name, dense, lo, transform}]. The host reads
     the indices, origins and any v6 stream of a grid, then the grid is
     decoded and corrected on the device (`decode_to_dense`)."""
-    _no_mesh(codec)
     bs = codec.ccfg.batch_size
     out: List[dict] = []
     with VqvdbReader(in_path) as r:

@@ -1,5 +1,10 @@
 """ctypes shim over the native host library (counterpart of
-`vqvdb_tpu/runtime/native_io.py`): the LZ4 block codec of the v5/v6 frames.
+`vqvdb_tpu/runtime/native_io.py`): the LZ4 block codec of the v5/v6 frames,
+and `copy_into`, the threaded copy that puts a mesh's shard rows back into
+their batch. The JAX package's other helpers (`interleave`, `deinterleave`,
+`gather_leaves`, `scatter_leaves`) are numpy here: `format/vqvdb.py` packs
+and unpacks the v3 records, `vdb/grid.py` moves leaves to and from dense
+volumes.
 
 The library is built from the repo's `native/vqvdb_native.cpp` on first use
 with `g++ -O3 -shared -fPIC -std=c++17 -pthread` into
@@ -63,6 +68,8 @@ def _load() -> ctypes.CDLL:
             lib = ctypes.CDLL(str(target))
             u8p, i64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_int64
             lib.vq_version.restype = ctypes.c_int
+            lib.vq_copy_mt.argtypes = [u8p, u8p, i64, ctypes.c_int]
+            lib.vq_copy_mt.restype = None
             for name in ("vq_lz4_compress", "vq_lz4_decompress"):
                 fn = getattr(lib, name)
                 fn.argtypes = [u8p, i64, u8p, i64]
@@ -106,3 +113,17 @@ def lz4_decompress(blob: bytes, dst_size: int) -> bytes:
     if k != dst_size:
         raise ValueError("lz4: malformed block")
     return out.tobytes()
+
+
+def copy_into(dst: np.ndarray, src: np.ndarray, threads: int = 0) -> None:
+    """dst[...] = src. C-contiguous arrays of one dtype and shape go through
+    the library's threaded memcpy (`threads` workers, 0: the hardware's
+    count; one below 1 MiB); other layouts take numpy's copy, as in the JAX
+    package."""
+    lib = _load()
+    if (dst.flags.c_contiguous and src.flags.c_contiguous and dst.dtype == src.dtype
+            and dst.shape == src.shape):
+        lib.vq_copy_mt(_p(src.reshape(-1).view(np.uint8)),
+                       _p(dst.reshape(-1).view(np.uint8)), dst.nbytes, threads)
+        return
+    np.copyto(dst, src)

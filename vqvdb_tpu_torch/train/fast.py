@@ -10,6 +10,12 @@ dead-code interval (the interval's metrics with its dead-code count).
 
 The math is `train.train_step`'s; `epoch_permutation` gives the order an
 epoch takes, so the host loop over the same batches gives the same state.
+
+With a mesh (one process per device, `parallel/mesh.py`) each rank holds the
+whole pool, draws the same epoch permutation, and steps on its slice of each
+step's rows; the losses are averaged over the group's equal slices, and the
+dead-code reset's probe batch, encoded by every rank from the same params,
+draws the same reset everywhere. Rank 0 alone logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -20,21 +26,22 @@ import numpy as np
 import torch
 
 from vqvdb_tpu_torch.core.config import ModelConfig
-from vqvdb_tpu_torch.core.weights import DeviceLike, resolve_device
+from vqvdb_tpu_torch.core.weights import DeviceLike
 from vqvdb_tpu_torch.models.vqvae import encoder_apply
 from vqvdb_tpu_torch.train.train import (
-    MESH_NOT_PORTED,
     AdamW,
+    Placement,
     TrainConfig,
     TrainState,
+    _quiet,
     apply_reset,
     eval_step,
     generator,
     make_optimizer,
     make_train_state,
+    placement,
     train_step,
 )
-from vqvdb_tpu_torch.utils.errors import ConfigError
 
 METRIC_KEYS = ("loss", "recon_err", "vq_loss", "perplexity", "val_loss")
 
@@ -49,31 +56,36 @@ def epoch_permutation(tcfg: TrainConfig, n: int, epoch: int,
 
 def run_epochs(state: TrainState, data: torch.Tensor, val_data: torch.Tensor,
                opt: AdamW, mcfg: ModelConfig, tcfg: TrainConfig, first_epoch: int,
-               epochs: int) -> Tuple[TrainState, torch.Tensor]:
+               epochs: int, place: Optional[Placement] = None
+               ) -> Tuple[TrainState, torch.Tensor]:
     """`epochs` epochs over the resident pool `data` [N, 8, 8, 8, C] (the
     first (N // batch) * batch leaves of each permutation), each followed by
     validation over `val_data`'s full batches (NaN without one). Returns
     (state, metrics [epochs, 5] on the device: loss / recon / vq / perplexity
-    means of the steps, then val loss). Nothing here waits for the device."""
+    means of the steps, then val loss). Nothing here waits for the device.
+    Under a `place` of several ranks each step and val batch runs on this
+    rank's slice of its rows."""
     bs = tcfg.batch_size
     n = data.shape[0]
     steps = n // bs
     if steps == 0:
         raise ValueError(f"batch_size {bs} exceeds dataset size {n}")
+    place = place or Placement(data.device, None, 0, 1)
+    mine = place.rows(bs)
     val_steps = val_data.shape[0] // bs
     rows = []
     for e in range(first_epoch, first_epoch + epochs):
         perm = epoch_permutation(tcfg, n, e, data.device)
         acc = torch.zeros(4, dtype=torch.float32, device=data.device)
         for i in range(steps):
-            batch = data.index_select(0, perm[i * bs:(i + 1) * bs])
-            state, metrics, _ = train_step(state, batch, opt, mcfg, tcfg)
+            batch = data.index_select(0, perm[i * bs:(i + 1) * bs][mine])
+            state, metrics, _ = train_step(state, batch, opt, mcfg, tcfg, group=place.group)
             acc += torch.stack([metrics[k].to(torch.float32) for k in METRIC_KEYS[:4]])
         if val_steps:
             val = torch.zeros((), dtype=torch.float32, device=data.device)
             for i in range(val_steps):
-                val += eval_step(state.params, val_data[i * bs:(i + 1) * bs],
-                                 mcfg, tcfg)["loss"].to(torch.float32)
+                val += eval_step(state.params, val_data[i * bs:(i + 1) * bs][mine],
+                                 mcfg, tcfg, group=place.group)["loss"].to(torch.float32)
             val = val / val_steps
         else:
             val = torch.full((), float("nan"), device=data.device)
@@ -96,13 +108,16 @@ def train_on_device(dataset_leaves: np.ndarray, mcfg: ModelConfig, tcfg: TrainCo
     segments of n // S leaves (starts spread evenly, so adjacent segments
     overlap to cover the remainder) and interval j runs over segment j mod
     S. With `checkpoint_dir` every interval ends in a checkpoint and a new
-    best val loss in the `best/` slot. Returns (final state, metrics
+    best val loss in the `best/` slot. With `mesh`, this rank's part of a
+    data-parallel run (module docstring). Returns (final state, metrics
     [epochs, 5] = loss / recon / vq / perplexity / val_loss)."""
     from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
 
-    if mesh is not None:
-        raise ConfigError(MESH_NOT_PORTED)
-    dev = resolve_device(device)
+    place = placement(mesh, device)
+    dev = place.device
+    place.rows(tcfg.batch_size)  # ValueError unless the ranks split it evenly
+    if place.rank:
+        log_fn = _quiet
     leaves = np.asarray(dataset_leaves, np.float32)
     if leaves.ndim == 4:
         leaves = leaves[..., None]
@@ -151,7 +166,8 @@ def train_on_device(dataset_leaves: np.ndarray, mcfg: ModelConfig, tcfg: TrainCo
     while done < tcfg.epochs:
         span = min(interval, tcfg.epochs - done)
         data = segments[(done // interval) % n_segs]
-        state, trace = run_epochs(state, data, val_data, opt, mcfg, tcfg, done, span)
+        state, trace = run_epochs(state, data, val_data, opt, mcfg, tcfg, done, span,
+                                  place)
         n_dead = torch.zeros((), dtype=torch.int64, device=dev)
         if done + span < tcfg.epochs:
             probe = data[: min(tcfg.batch_size, n_run)]
@@ -170,7 +186,7 @@ def train_on_device(dataset_leaves: np.ndarray, mcfg: ModelConfig, tcfg: TrainCo
                f"recon={m[1]:.5f} vq={m[2]:.5f} ppl={m[3]:.1f} val={val_loss:.5f}")
         if int(host[-1]):
             log_fn(f"[fast-train] reset {int(host[-1])} dead codes")
-        if manager is not None:
+        if manager is not None and not place.rank:
             manager.save(state.step, state, metrics={"epoch": done, "loss": float(m[0]),
                                                      "val_loss": val_loss})
             select = val_loss if np.isfinite(val_loss) else float(m[0])

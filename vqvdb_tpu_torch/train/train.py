@@ -18,8 +18,16 @@ A train step runs eagerly: autograd through the eager graph (the residual
 block unfused, as the JAX package trains it), the nearest-code and
 dequantize kernels in the quantizer on the card. Random draws come from
 `torch.Generator`s seeded from `TrainConfig.seed`, one per use (`generator`),
-so a resumed run draws what an uninterrupted one would. The data-parallel
-trainer (`mesh=`) is not ported (ROADMAP.md Queue 1 item 13).
+so a resumed run draws what an uninterrupted one would.
+
+Data parallelism (`mesh=`, `parallel/mesh.py`) runs one process per device:
+every rank iterates the same seeded global batches and steps on its
+`local_batch_slice`; `train_step(group=)` averages the gradients and
+metrics over the group and sums the EMA statistics, so each rank ends each
+step with the same state, that of one process on the global batch. The
+dead-code reset gathers the ranks' encoder outputs of the epoch's first
+batch, and every rank draws the same reset. Rank 0 alone logs and writes
+checkpoints.
 """
 
 from __future__ import annotations
@@ -37,7 +45,6 @@ from vqvdb_tpu_torch.core.config import ModelConfig
 from vqvdb_tpu_torch.core.weights import DeviceLike, resolve_device
 from vqvdb_tpu_torch.models.quantizer import VQState
 from vqvdb_tpu_torch.models.vqvae import (
-    check_ported,
     decoder_apply,
     encoder_apply,
     init_vqvae_params,
@@ -45,12 +52,11 @@ from vqvdb_tpu_torch.models.vqvae import (
     quantize_train_forward,
     reset_dead,
 )
+from vqvdb_tpu_torch.parallel.distributed import all_gather_rows, all_reduce_mean
+from vqvdb_tpu_torch.parallel.mesh import TRAIN_ONE_DEVICE, Mesh
 from vqvdb_tpu_torch.utils.errors import ConfigError
 
 Params = Dict[str, Any]
-
-MESH_NOT_PORTED = ("the data-parallel trainer (mesh=) is not ported yet "
-                   "(ROADMAP.md Queue 1 item 13)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,6 +95,35 @@ class TrainConfig:
             if getattr(self, name) not in ("bfloat16", "float32"):
                 raise ValueError(f"{name} must be 'bfloat16' or 'float32', got "
                                  f"{getattr(self, name)!r}")
+
+
+class Placement(NamedTuple):
+    """Where this process trains: its device, the process group (None for
+    one process), its rank and the world size."""
+
+    device: torch.device
+    group: Any
+    rank: int
+    world: int
+
+    def rows(self, batch: int) -> slice:
+        """This rank's rows of a global batch (`local_batch_slice`)."""
+        if batch % self.world:
+            raise ValueError(f"batch_size {batch} must divide evenly over the "
+                             f"{self.world} ranks")
+        per = batch // self.world
+        return slice(self.rank * per, (self.rank + 1) * per)
+
+
+def placement(mesh: Optional[Mesh], device: DeviceLike) -> Placement:
+    """This process's part of `mesh` (or of one device without one). A mesh
+    of several devices in one process raises ConfigError: training takes
+    one process per device."""
+    if mesh is None:
+        return Placement(resolve_device(device), None, 0, 1)
+    if mesh.local_size != 1:
+        raise ConfigError(TRAIN_ONE_DEVICE)
+    return Placement(mesh.devices[0], mesh.group, mesh.first_shard, mesh.size)
 
 
 class TrainState(NamedTuple):
@@ -256,11 +291,13 @@ def _recon_terms(recon: torch.Tensor, batch: torch.Tensor, tcfg: TrainConfig):
 
 
 def _forward_loss(trainable: Params, vq_state: VQState, batch: torch.Tensor,
-                  mcfg: ModelConfig, tcfg: TrainConfig):
-    """(loss, (new VQState, metrics, z)) for the trainable {encoder, decoder}."""
+                  mcfg: ModelConfig, tcfg: TrainConfig, group=None):
+    """(loss, (new VQState, metrics, z)) for the trainable {encoder, decoder};
+    `group` sums the EMA statistics over a process group."""
     x = batch.to(getattr(torch, tcfg.compute_dtype))
     z = encoder_apply(trainable["encoder"], x, mcfg)
-    quantized, new_vq, vq_loss, perplexity = quantize_train_forward(vq_state, z, mcfg)
+    quantized, new_vq, vq_loss, perplexity = quantize_train_forward(vq_state, z, mcfg,
+                                                                    group=group)
     recon = decoder_apply(trainable["decoder"], quantized, mcfg)  # f32
     target, recon_mse, recon_l1, recon_err = _recon_terms(recon, batch, tcfg)
     if tcfg.grad_loss_weight > 0.0:
@@ -271,34 +308,45 @@ def _forward_loss(trainable: Params, vq_state: VQState, batch: torch.Tensor,
     return loss, (new_vq, metrics, z)
 
 
+def _mean_metrics(metrics: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    values = [v.detach() for v in metrics.values()]
+    if group is not None:
+        values = list(all_reduce_mean([torch.stack(values)], group)[0])
+    return dict(zip(metrics, values))
+
+
 def train_step(state: TrainState, batch: torch.Tensor, opt: AdamW,
-               mcfg: ModelConfig, tcfg: TrainConfig
+               mcfg: ModelConfig, tcfg: TrainConfig, *, group=None
                ) -> Tuple[TrainState, Dict[str, torch.Tensor], torch.Tensor]:
     """One optimizer step: (new state, metrics as 0-d tensors, encoder
-    outputs z for the dead-code reset). `state` is left as it was."""
-    check_ported(mcfg)
+    outputs z for the dead-code reset). `state` is left as it was. With
+    `group` (a torch.distributed group; `batch` is this rank's shard) the
+    gradients and metrics are averaged over the group and the EMA
+    statistics summed before the updates, in the JAX package's `pmean` /
+    `psum` places; z stays the shard's."""
     trainable = tree_map(lambda t: t.detach().requires_grad_(),
                          _trainable(state.params))
     leaves = tree_leaves(trainable)
     with torch.enable_grad():
         loss, (new_vq, metrics, z) = _forward_loss(
-            trainable, VQState(**state.params["vq"]), batch, mcfg, tcfg)
+            trainable, VQState(**state.params["vq"]), batch, mcfg, tcfg, group)
         grads = torch.autograd.grad(loss, leaves)
+    grads = all_reduce_mean(grads, group)
     with torch.no_grad():
         new_leaves, new_opt = opt.update(list(grads), state.opt_state,
                                          [t.detach() for t in leaves])
     new_trainable = tree_unflatten(trainable, new_leaves)
     params = {"encoder": new_trainable["encoder"], "decoder": new_trainable["decoder"],
               "vq": new_vq._asdict()}
-    metrics = {k: v.detach() for k, v in metrics.items()}
-    return TrainState(params, new_opt, state.step + 1), metrics, z.detach()
+    return (TrainState(params, new_opt, state.step + 1), _mean_metrics(metrics, group),
+            z.detach())
 
 
 @torch.no_grad()
 def eval_step(params: Params, batch: torch.Tensor, mcfg: ModelConfig,
-              tcfg: TrainConfig) -> Dict[str, torch.Tensor]:
+              tcfg: TrainConfig, *, group=None) -> Dict[str, torch.Tensor]:
     """Validation forward: the training loss without EMA or optimizer
-    updates, with inference quantization."""
+    updates, with inference quantization; `group` averages the metrics."""
     x = batch.to(getattr(torch, tcfg.compute_dtype))
     z = encoder_apply(params["encoder"], x, mcfg)
     _, quant_flat = quantize_infer(VQState(**params["vq"]),
@@ -308,8 +356,8 @@ def eval_step(params: Params, batch: torch.Tensor, mcfg: ModelConfig,
         torch.square(z.to(torch.float32) - quantized.to(torch.float32)))
     recon = decoder_apply(params["decoder"], quantized, mcfg)
     _, recon_mse, _, recon_err = _recon_terms(recon, batch, tcfg)
-    return {"loss": recon_err + commit, "recon_mse": recon_mse,
-            "recon_err": recon_err, "vq_loss": commit}
+    return _mean_metrics({"loss": recon_err + commit, "recon_mse": recon_mse,
+                          "recon_err": recon_err, "vq_loss": commit}, group)
 
 
 def apply_reset(state: TrainState, gen: torch.Generator, z: torch.Tensor,
@@ -325,6 +373,10 @@ def apply_reset(state: TrainState, gen: torch.Generator, z: torch.Tensor,
 # ---------------------------------------------------------------------------
 # Driver
 # ---------------------------------------------------------------------------
+
+def _quiet(*_args) -> None:
+    """The log of a rank other than 0."""
+
 
 class _Uploader:
     """Host batches -> `device`. On the card each batch is staged in one of
@@ -360,16 +412,18 @@ class _Uploader:
 def train(dataset, mcfg: ModelConfig, tcfg: TrainConfig, *,
           checkpoint_dir: Optional[str] = None, resume: bool = True, mesh=None,
           log_fn=print, device: DeviceLike = None) -> Tuple[TrainState, Dict[str, list]]:
-    """Training driver over a LeafDataset, on `device` (default `cuda`).
-    Metrics stay on the device during an epoch; the host reads them at the
-    epoch's end and at each `log_every` step. Returns (final state,
-    history)."""
+    """Training driver over a LeafDataset, on `device` (default `cuda`), or
+    on this rank's device of `mesh` (module docstring). Metrics stay on the
+    device during an epoch; the host reads them at the epoch's end and at
+    each `log_every` step. Returns (final state, history), the same on
+    every rank."""
     from vqvdb_tpu_torch.train.checkpoint import CheckpointManager
 
-    if mesh is not None:
-        raise ConfigError(MESH_NOT_PORTED)
-    check_ported(mcfg)
-    dev = resolve_device(device)
+    place = placement(mesh, device)
+    dev, group = place.device, place.group
+    mine = place.rows(tcfg.batch_size)
+    if place.rank:
+        log_fn = _quiet
     train_view, val_view = dataset.split(tcfg.val_fraction, seed=tcfg.seed)
     steps_per_epoch = max(len(train_view) // tcfg.batch_size, 1)
     total_steps = steps_per_epoch * tcfg.epochs
@@ -402,7 +456,8 @@ def train(dataset, mcfg: ModelConfig, tcfg: TrainConfig, *,
         n_steps = 0
         for i, batch in enumerate(train_view.batches(
                 tcfg.batch_size, shuffle=True, seed=tcfg.seed, epoch=epoch)):
-            state, metrics, z = train_step(state, upload(batch), opt, mcfg, tcfg)
+            state, metrics, z = train_step(state, upload(batch[mine]), opt, mcfg, tcfg,
+                                           group=group)
             if i == 0:
                 first_z = z
             n_steps += 1
@@ -415,12 +470,14 @@ def train(dataset, mcfg: ModelConfig, tcfg: TrainConfig, *,
                        f"ppl={m['perplexity']:.1f}")
 
         if (epoch + 1) % tcfg.dead_code_interval == 0 and first_z is not None:
+            # The global batch's z: the ranks' shards in rank order.
             state, n_dead = apply_reset(state, generator(dev, tcfg.seed, 1, epoch),
-                                        first_z, mcfg)
+                                        all_gather_rows(first_z, group), mcfg)
             if int(n_dead):
                 log_fn(f"[train] reset {int(n_dead)} dead codes")
 
-        val_losses = [eval_step(state.params, upload(b), mcfg, tcfg)["loss"]
+        val_losses = [eval_step(state.params, upload(b[mine]), mcfg, tcfg,
+                                group=group)["loss"]
                       for b in val_view.batches(tcfg.batch_size, drop_remainder=True)]
         val_loss = (float(torch.stack(val_losses).double().mean()) if val_losses
                     else float("nan"))
@@ -435,7 +492,7 @@ def train(dataset, mcfg: ModelConfig, tcfg: TrainConfig, *,
                f"vq={run_vq:.6f} val={val_loss:.6f} ppl={last:.1f} "
                f"({time.perf_counter() - t0:.1f}s)")
 
-        if manager:
+        if manager and not place.rank:
             # Selection metric: val loss, or the epoch's train loss when the
             # val split holds no full batch.
             select = val_loss if not np.isnan(val_loss) else run_recon
