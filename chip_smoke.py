@@ -129,7 +129,7 @@ Phases, in this order; any failure raises and the script exits non-zero:
      rank's v3 and v6-int8 files byte-identical to phase 3's, and three f32
      train steps (TF32 off) of the ranks bit-identical to each other and
      within rtol 2e-4 / atol 2e-5 of one process on the global batches.
-     --mesh-only runs phases 1-3 and 16 alone. Logs `[mesh] <part> {...}`.
+     --mesh-only runs phases 1-3, 16 and 18 alone. Logs `[mesh] <part> {...}`.
  17. packed_stem and the folded final conv: (1) a packed_stem model at the
      flagship's widths trained from seeded init on the card (one resident
      epoch over the --leaves leaves, batch 2048, bf16; one nearest-code and
@@ -138,7 +138,21 @@ Phases, in this order; any failure raises and the script exits non-zero:
      params' PSNR; (2) phase 9's card-vs-CPU parity on it; (3) the flagship
      decoded through the folded final conv (fuse_decoder_tail=False, f32,
      TF32 off) within 1e-5 of the fused tail. Logs `[stem] <part> {...}`.
-Phases 3 and 15-17 log their seconds (`[phaseN]`).
+ 18. layout: (1) `tools/batch_invariance.py` on the card: every stage of the
+     encode and decode steps of the flagship, the reference arch and
+     scalar_rvq2 (convs, GroupNorm, attention, tail, the four kernels)
+     gives a row the same bits in blocks of 2,048, 1,024, 512 and 256 rows
+     as in a 4,096-row batch, in bf16 and f32 (TF32 off); its JSON is
+     logged; (2) meshes of 2, 4, 8 and 16 entries on the one card
+     (`Mesh((cuda:0,) * n, n)`: a stream each, shards of 2,048 down to 256
+     rows, the shapes that 2-16 cards run): the flagship's v3 and v6-int8
+     files, the reference arch's and scalar_rvq2's v3 files byte-identical
+     to phases 3, 10, 5 and 6's, decompress and the flagship's dense decode
+     bit-identical, one launch per kernel, stage and shard step; (3) with
+     several cards, the flagship on a mesh of every card at batch 4096,
+     2048 and 1024 against one card at the same batch size. Logs
+     `[layout] <part> {...}`.
+Phases 3 and 15-18 log their seconds (`[phaseN]`).
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -2531,6 +2545,177 @@ def stem_phase(args, flag_tree, flag_cfg, grid, flag_file: Path, workdir: Path):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: output independent of the layout
+# ---------------------------------------------------------------------------
+
+LAYOUT_ENTRIES = (2, 4, 8, 16)  # shards of 2,048 down to 256 rows at batch 4096
+LAYOUT_BATCHES = (4096, 2048, 1024)  # the batch sizes of the several-card part
+
+
+def _one_card_mesh(entries: int):
+    """A mesh of `entries` entries on cuda:0, each on its own stream: every
+    shard step runs at the shape that `entries` cards would run it at."""
+    import torch
+
+    from vqvdb_tpu_torch.parallel.mesh import Mesh
+
+    return Mesh((torch.device("cuda", 0),) * entries, entries)
+
+
+def _layout_launches(label, n, batch, size):
+    """The launches each model's encode and decode make on a mesh of `size`
+    over n leaves: one per kernel and stage a shard step."""
+    steps = _shard_steps(n, batch, size)
+    return {"scalar": (dict(score_argmin=steps), dict(dequantize=steps)),
+            "scalar_v6_int8": (dict(score_argmin=steps, dequantize=steps), None),
+            "scalar_reference": (dict(fused_rb=steps, score_argmin=steps),
+                                 dict(dequantize=steps)),
+            "scalar_rvq2": (dict(nearest_indices=2 * steps, dequantize=2 * steps),
+                            dict(dequantize=2 * steps))}[label]
+
+
+def _layout_case(label, tree, cfg, ref, mesh, workdir: Path, batch: int = 4096):
+    """One model on `mesh`: each file of `ref["files"]` (tier -> (path,
+    compress options)) written byte for byte, decompress bit-equal to
+    `ref["leaves"]`, and the dense decode to `ref["dense"]` where given;
+    launches counted per shard step. Returns the launch counts."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.runtime.dense import decode_to_dense
+
+    codec = VQCodec(tree, cfg, CodecConfig(batch_size=batch), mesh=mesh)
+    grid = ref["grid"]
+    out = {}
+    for tier, (path, opts) in ref["files"].items():
+        name = label if tier == "v3" else f"{label}_{tier}"
+        reset_launches()
+        codec.compress(grid, workdir / "layout.vqvdb", **opts)
+        out[f"{tier}_encode"] = read_launches()
+        expect_launches(f"layout {name} encode on {mesh.size}", out[f"{tier}_encode"],
+                        **_layout_launches(name, grid.num_leaves, batch, mesh.size)[0])
+        if (workdir / "layout.vqvdb").read_bytes() != path.read_bytes():
+            raise AssertionError(f"layout: {name} on a mesh of {mesh.size} (batch {batch}) "
+                                 "writes another file than one card")
+    reset_launches()
+    (got,), _ = codec.decompress(ref["files"]["v3"][0])
+    out["decode"] = read_launches()
+    expect_launches(f"layout {label} decode on {mesh.size}", out["decode"],
+                    **_layout_launches(label, grid.num_leaves, batch, mesh.size)[1])
+    if not np.array_equal(got.leaves, ref["leaves"]):
+        raise AssertionError(f"layout: {label} decompress on a mesh of {mesh.size} differs")
+    if "dense" in ref:
+        with VqvdbReader(ref["files"]["v3"][0]) as r:
+            _, idx, origins = r.read_grid()
+        dense, _ = decode_to_dense(codec, idx, origins)
+        if dense.shape != ref["dense"].shape or not torch.equal(dense, ref["dense"]):
+            raise AssertionError(f"layout: {label} dense decode on a mesh of {mesh.size} "
+                                 "differs")
+        del dense
+    return out
+
+
+def _layout_ref(codec, grid, files, dense: bool = False):
+    """What a mesh is held to: one card's files (tier -> (path, options)),
+    its decompress of the v3 file and, with `dense`, its dense decode."""
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+    from vqvdb_tpu_torch.runtime.dense import decode_to_dense
+
+    (want,), _ = codec.decompress(files["v3"][0])
+    ref = {"grid": grid, "files": files, "leaves": want.leaves}
+    if dense:
+        with VqvdbReader(files["v3"][0]) as r:
+            _, idx, origins = r.read_grid()
+        ref["dense"], _ = decode_to_dense(codec, idx, origins)
+    return ref
+
+
+def layout_models(tree, cfg, codec, grid, refs, side_leaves: int, others=None):
+    """Phase 18's models: label -> (tree, cfg, one card's codec, leaves, one
+    card's files). The flagship's are phase 3's v3 and phase 10's v6-int8
+    files; the reference arch's and scalar_rvq2's phase 5's and 6's v3 files
+    (`others`: label -> (tree, cfg, codec)), or, without them (--mesh-only),
+    written here by a default codec on one card."""
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+
+    data = {"scalar_reference": grid, "scalar_rvq2": grid_subset(grid, side_leaves)}
+    models = {"scalar": (tree, cfg, codec, grid,
+                         {"v3": (refs["v3"], {}),
+                          "v6_int8": (refs["v6_int8"], dict(residual="int8"))})}
+    for label, leaves in data.items():
+        if others is None:
+            t, c = load_model(REPO / "models" / f"{label}.vqmodel")
+            one = VQCodec(t, c, CodecConfig(), device="cuda")
+            one.compress(leaves, refs[label])
+        else:
+            t, c, one = others[label]
+        models[label] = (t, c, one, leaves, {"v3": (refs[label], {})})
+    return models
+
+
+def layout_phase(models, workdir: Path):
+    """Phase 18: `tools/batch_invariance.py` (every stage of the three
+    models' steps, the kernels included, bit-equal at 2,048-256 rows in bf16
+    and f32, TF32 off), then each of `models` (label -> (tree, cfg, one
+    card's codec, grid, files)) on one-card meshes of LAYOUT_ENTRIES entries
+    at batch 4096 against one card, and with several cards the flagship on
+    a mesh of every card at each of LAYOUT_BATCHES against one card at the
+    same batch size. Logs `[layout] <part> {...}`."""
+    import torch
+
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.tools import batch_invariance
+
+    t0 = time.perf_counter()
+    res = {}
+    with _no_tf32_matmul():
+        inv = batch_invariance.stages("cuda")
+    moved = {f"{m}/{d}/{k}": v for m, by_dtype in inv["stages"].items()
+             for d, st in by_dtype.items() for k, v in st.items() if not all(v.values())}
+    log(f"[layout] batch_invariance {json.dumps(inv)}")
+    if moved:
+        raise AssertionError(f"layout: stages whose rows move with the batch: {moved}")
+    res["stages_bit_equal"] = sorted({k for by_dtype in inv["stages"].values()
+                                      for st in by_dtype.values() for k in st})
+    refs = {label: _layout_ref(codec, grid, files, dense=label == "scalar")
+            for label, (_, _, codec, grid, files) in models.items()}
+    for entries in LAYOUT_ENTRIES:
+        mesh = _one_card_mesh(entries)
+        t1 = time.perf_counter()
+        part = {label: _layout_case(label, tree, cfg, refs[label], mesh, workdir)
+                for label, (tree, cfg, _, _, _) in models.items()}
+        part["seconds"] = time.perf_counter() - t1
+        res[f"entries_{entries}"] = part
+        log(f"[layout] one card, {entries} entries of {4096 // entries} rows: "
+            f"{json.dumps(part)}")
+    cards = torch.cuda.device_count()
+    if cards > 1:
+        tree, cfg, _, grid, _ = models["scalar"]
+        mesh = make_mesh()
+        for batch in LAYOUT_BATCHES:
+            single = VQCodec(tree, cfg, CodecConfig(batch_size=batch), device="cuda")
+            files = {"v3": (workdir / f"one_{batch}_v3.vqvdb", {}),
+                     "v6_int8": (workdir / f"one_{batch}_v6.vqvdb", dict(residual="int8"))}
+            for path, opts in files.values():
+                single.compress(grid, path, **opts)
+            part = _layout_case("scalar", tree, cfg,
+                                _layout_ref(single, grid, files, dense=True), mesh,
+                                workdir, batch)
+            res[f"cards_{cards}_batch_{batch}"] = part
+            log(f"[layout] {cards} cards, batch {batch} ({batch // cards} rows a shard): "
+                f"files, decompress and dense decode as one card's {json.dumps(part)}")
+    log(f"[phase18] {time.perf_counter() - t0:.1f} s")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2540,7 +2725,7 @@ def main() -> int:
     ap.add_argument("--ranks", type=int, default=1,
                     help="phase 16.3: spawn this many NCCL ranks, one per card")
     ap.add_argument("--mesh-only", action="store_true",
-                    help="run phases 1-3 and 16 only (the multi-card measurement)")
+                    help="run phases 1-3, 16 and 18 only (the multi-card measurement)")
     args = ap.parse_args()
 
     import torch
@@ -2584,7 +2769,9 @@ def main() -> int:
     # The phase-3 codec's v3 and v6-int8 files, which phase 16 holds the mesh to.
     keep_dir = tempfile.TemporaryDirectory()
     keep = Path(keep_dir.name)
-    refs = {"v3": keep / "main_v3.vqvdb", "v6_int8": keep / "main_v6_int8.vqvdb"}
+    refs = {"v3": keep / "main_v3.vqvdb", "v6_int8": keep / "main_v6_int8.vqvdb",
+            "scalar_reference": keep / "reference_v3.vqvdb",
+            "scalar_rvq2": keep / "rvq2_v3.vqvdb"}
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
         t0 = time.perf_counter()
@@ -2595,6 +2782,8 @@ def main() -> int:
         if args.mesh_only:
             codec.compress(grid, refs["v6_int8"], residual="int8")
             mesh_phase(args, tree, cfg, codec, grid, refs, workdir)
+            layout_phase(layout_models(tree, cfg, codec, grid, refs, args.side_leaves),
+                         workdir)
             keep_dir.cleanup()
             log(f"[done] {time.perf_counter() - t_start:.1f} s")
             print(json.dumps({"kernels": []}))
@@ -2607,8 +2796,10 @@ def main() -> int:
             log(f"[profile] {json.dumps(profile_batches(codec, grid, args.profile))}")
 
         ref_tree, ref_cfg, ref_codec, ref_res = reference_path(grid, workdir)
+        shutil.copy(workdir / "reference.vqvdb", refs["scalar_reference"])
         log(f"[reference] {json.dumps(ref_res)}")
         side, vgrid, side_res = side_paths(args.seed, args.side_leaves, grid, workdir)
+        shutil.copy(workdir / "scalar_rvq2.vqvdb", refs["scalar_rvq2"])
         for label, res in side_res.items():
             log(f"[{label}] {json.dumps(res)}")
         kernels += log_kernel_rows(
@@ -2668,6 +2859,11 @@ def main() -> int:
         mesh_res = mesh_phase(args, tree, cfg, codec, grid, refs, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         stem_res = stem_phase(args, tree, cfg, grid, refs["v3"], Path(tmp))
+    with tempfile.TemporaryDirectory() as tmp:
+        others = {"scalar_reference": (ref_tree, ref_cfg, ref_codec),
+                  "scalar_rvq2": side["scalar_rvq2"]}
+        layout_res = layout_phase(layout_models(tree, cfg, codec, grid, refs,
+                                                args.side_leaves, others), Path(tmp))
     keep_dir.cleanup()
 
     # Each row's count comes from the path that runs the kernel at the row's
@@ -2687,8 +2883,9 @@ def main() -> int:
     launches["dequantize_bf16_d20"] = deep_res["d20"]["decode_launches"]["dequantize"]
     launches["nearest_indices_train"] = train_res["host_loop"]["launches"]["nearest_indices"]
     launches["dequantize_train"] = train_res["host_loop"]["launches"]["dequantize"]
-    # Paths without a kernel row of their own: the mesh's shard steps and the
-    # packed_stem model's training and codec; each must have launched too.
+    # Paths without a kernel row of their own: the mesh's shard steps, the
+    # packed_stem model's training and codec and phase 18's one-card meshes;
+    # each must have launched too.
     launches["score_argmin_mesh"] = mesh_res["codec"]["v3_encode_launches"]["score_argmin"]
     launches["dequantize_mesh"] = mesh_res["codec"]["decode_launches"]["dequantize"]
     launches["nearest_indices_group_of_one"] = \
@@ -2699,6 +2896,12 @@ def main() -> int:
         stem_res["train"]["launches"]["nearest_indices"]
     launches["dequantize_folded_final_conv"] = \
         stem_res["folded_final_conv"]["launches"]["dequantize"]
+    # Phase 18's sixteen-entry mesh on one card: 256-row shard steps.
+    many = layout_res[f"entries_{LAYOUT_ENTRIES[-1]}"]
+    launches["score_argmin_layout"] = many["scalar"]["v3_encode"]["score_argmin"]
+    launches["dequantize_layout"] = many["scalar"]["decode"]["dequantize"]
+    launches["fused_rb_layout"] = many["scalar_reference"]["v3_encode"]["fused_rb"]
+    launches["nearest_indices_layout"] = many["scalar_rvq2"]["v3_encode"]["nearest_indices"]
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(f"[launches] {json.dumps(launches)}")

@@ -773,3 +773,69 @@ def test_card_nccl_group_of_one(tmp_path, rng):
         assert (tmp_path / "group.vqvdb").read_bytes() == (tmp_path / "single.vqvdb").read_bytes()
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["scalar", "scalar_reference", "scalar_rvq2"])
+@pytest.mark.parametrize("entries", [2, 4, 8, 16])
+def test_card_one_card_mesh_of_many_entries(tmp_path, rng, name, entries):
+    """A mesh of `entries` entries on one card (each its own stream; shards
+    of 4096 / entries leaves, down to 256) writes one device's file at
+    batch 4096, in bf16 and f32, and decodes it bit for bit."""
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.parallel.mesh import Mesh
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    dev = _card()
+    tree, cfg = load_model(_MODELS / f"{name}.vqmodel")
+    n = 4096 + 300
+    origins = (np.stack(np.unravel_index(np.arange(n), (32, 32, 32)), 1) * 8).astype(np.int32)
+    grid = LeafGrid("density", origins, rng.random((n, 8, 8, 8, 1), np.float32))
+    mesh = Mesh((torch.device("cuda", dev.index or 0),) * entries, entries)
+    for dtype in ("bfloat16", "float32"):
+        ccfg = CodecConfig(compute_dtype=dtype)
+        single = VQCodec(tree, cfg, ccfg, device=dev)
+        codec = VQCodec(tree, cfg, ccfg, mesh=mesh)
+        single.compress(grid, tmp_path / "single.vqvdb")
+        codec.compress(grid, tmp_path / "mesh.vqvdb")
+        assert (tmp_path / "mesh.vqvdb").read_bytes() == (tmp_path / "single.vqvdb").read_bytes()
+        (a,), _ = single.decompress(tmp_path / "single.vqvdb")
+        (b,), _ = codec.decompress(tmp_path / "single.vqvdb")
+        assert np.array_equal(a.leaves, b.leaves)
+
+
+@pytest.mark.cuda
+def test_card_indices_beyond_256_codes_are_uint16(rng):
+    """encode_to_indices returns uint16 beyond 256 codes on the card, as the
+    JAX package does, and decode_from_indices takes them there: leaves
+    within 1e-4 of the CPU's decode of the same indices (f32, TF32 off)."""
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.core.weights import params_from_jax, params_to_jax
+    from vqvdb_tpu_torch.models.blocks import no_tf32
+    from vqvdb_tpu_torch.models.vqvae import (
+        decode_from_indices,
+        encode_to_indices,
+        init_vqvae_params,
+    )
+
+    dev = _card()
+    cfg = ModelConfig(embedding_dim=16, num_embeddings=300)
+    tree = params_to_jax(init_vqvae_params(torch.Generator().manual_seed(0), cfg))
+    card, cpu = params_from_jax(tree, cfg, dev), params_from_jax(tree, cfg, "cpu")
+    x = torch.from_numpy(rng.random((16, 8, 8, 8, 1), np.float32))
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad(), no_tf32(dev):
+            idx = encode_to_indices(card, x.to(dev), cfg)
+            rec = decode_from_indices(card, idx, cfg).cpu()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    assert idx.dtype == torch.uint16 and idx.device.type == "cuda"
+    host = idx.cpu()
+    assert host.numpy().dtype == np.uint16 and int(host.numpy().max()) < cfg.num_embeddings
+    with torch.no_grad():
+        ref = decode_from_indices(cpu, host, cfg)
+    torch.testing.assert_close(rec, ref, rtol=0, atol=1e-4)

@@ -140,6 +140,8 @@ def test_encode_decode_indices_match_jax(name):
 
 
 def test_indices_beyond_256_codes_are_int32():
+    """Beyond 256 codes the indices are uint16, as the JAX package's (the
+    name is the test's first form, when the port returned int32)."""
     tree, cfg, jp, jcfg = small(dict(embedding_dim=16, num_embeddings=300))
     params = params_from_jax(tree, cfg, "cpu")
     x = leaves(cfg)
@@ -147,7 +149,7 @@ def test_indices_beyond_256_codes_are_int32():
         idx = encode_to_indices(params, torch.from_numpy(x), cfg)
         got = decode_from_indices(params, idx, cfg)
     want = np.asarray(jax_encode_to_indices(jp, jnp.asarray(x), jcfg))
-    assert idx.dtype == torch.int32 and want.dtype == np.uint16
+    assert idx.dtype == torch.uint16 and idx.numpy().dtype == want.dtype == np.uint16
     assert_indices_match(idx.numpy(), want, jp, jcfg, x)
     ref = np.asarray(jax_decode_from_indices(jp, jnp.asarray(idx.numpy()), jcfg))
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=0)
@@ -207,9 +209,21 @@ def test_onnx_uint16_form_equals_jax(tmp_path):
     assert Path(paths["decoder"]).read_bytes() == jonnx.build_decoder_onnx(jp, jcfg)
     x = leaves(cfg)
     got = run_model(paths["encoder"], {"input": np.moveaxis(x, -1, 1)})["output"]
+    want = np.asarray(jax_encode_to_indices(jp, jnp.asarray(x), jcfg))
     assert got.dtype == np.uint16
-    assert_indices_match(got, np.asarray(jax_encode_to_indices(jp, jnp.asarray(x), jcfg)),
-                         jp, jcfg, x)
+    assert_indices_match(got, want, jp, jcfg, x)
+    # encode_to_indices returns the JAX package's dtype, and its own decoder
+    # and the exported one take it.
+    params = params_from_jax(tree, cfg, "cpu")
+    with torch.no_grad():
+        idx = encode_to_indices(params, torch.from_numpy(x), cfg)
+        rec = decode_from_indices(params, idx, cfg)
+    assert idx.dtype == torch.uint16 and idx.numpy().dtype == want.dtype
+    assert_indices_match(idx.numpy(), want, jp, jcfg, x)
+    ref = np.asarray(jax_decode_from_indices(jp, jnp.asarray(idx.numpy()), jcfg))
+    np.testing.assert_allclose(rec.numpy(), ref, atol=ATOL, rtol=0)
+    onnx_rec = run_model(paths["decoder"], {"input": idx.numpy()})["output"]
+    np.testing.assert_allclose(np.moveaxis(onnx_rec, 1, -1), ref, atol=ATOL, rtol=0)
 
 
 def test_onnx_refuses_residual_vq_as_jax_does(tmp_path):

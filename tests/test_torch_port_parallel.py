@@ -1,6 +1,8 @@
 """The port's mesh in one process (`vqvdb_tpu_torch/parallel/mesh.py`,
 `VQCodec(mesh=)`, the dense paths' mesh form, `native_io.copy_into`) on CPU
-meshes of 1, 2 and 4 entries, in f32.
+meshes of 1, 2, 4 and 8 entries (the JAX package's 8-device mesh), in f32,
+and the fixed-shape row blocks that keep a row's bits at any shard size
+(`models/blocks.py::row_wise`).
 
 A CPU mesh runs its shards one after another with the same arithmetic, so:
   * mesh files are byte-identical to the port's single-device codec's, and
@@ -21,14 +23,16 @@ import torch
 
 from vqvdb_tpu.core.config import CodecConfig as JaxCodecConfig
 from vqvdb_tpu.core.config import ModelConfig as JaxModelConfig
+from vqvdb_tpu.models import blocks as jblocks
 from vqvdb_tpu.models.vqvae import encoder_features as jax_encoder_features
 from vqvdb_tpu.models.vqvae import init_vqvae_params
 from vqvdb_tpu.parallel.mesh import make_mesh as jax_make_mesh
 from vqvdb_tpu.runtime import native_io as jax_native_io
 from vqvdb_tpu.runtime.codec import VQCodec as JaxCodec
 from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
+from vqvdb_tpu_torch.core.weights import params_to_jax, tree_to_torch
+from vqvdb_tpu_torch.models import blocks
 from vqvdb_tpu_torch.models.vqvae import init_vqvae_params as port_init
-from vqvdb_tpu_torch.core.weights import params_to_jax
 from vqvdb_tpu_torch.parallel.mesh import (
     make_mesh,
     make_sharded_decode,
@@ -41,6 +45,7 @@ from vqvdb_tpu_torch.parallel.mesh import (
 from vqvdb_tpu_torch.runtime import native_io
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.runtime.dense import decode_to_dense, encode_from_dense
+from vqvdb_tpu_torch.tools import batch_invariance
 from vqvdb_tpu_torch.train import train
 from vqvdb_tpu_torch.utils.errors import ConfigError
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
@@ -86,7 +91,7 @@ TIERS = {"v3": {}, "v5_lz4": dict(format_version=5, compression="lz4"),
 
 
 @pytest.mark.parametrize("tier", TIERS)
-@pytest.mark.parametrize("size", [1, 2, 4])
+@pytest.mark.parametrize("size", [1, 2, 4, 8])
 def test_mesh_files_are_byte_identical(packed, rng, tmp_path, size, tier):
     _, tree, cfg = packed
     grids = _grids(rng)
@@ -101,7 +106,7 @@ def test_mesh_files_are_byte_identical(packed, rng, tmp_path, size, tier):
         np.testing.assert_array_equal(a.leaves, b.leaves)
 
 
-@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("size", [2, 4, 8])
 def test_mesh_residual_vq_and_streams_are_byte_identical(rng, tmp_path, size):
     """A two-stage model (two nearest-code and dequantize launches per
     shard on the card), and compress_stream / encode_leaves on the mesh."""
@@ -219,7 +224,7 @@ def _sparse_grid(rng, bdims, fill=0.5):
                     rng.random((flat.size, 8, 8, 8, 1), np.float32))
 
 
-@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("size", [2, 4, 8])
 @pytest.mark.parametrize("residual", [None, "int8", "f16"])
 def test_mesh_dense_paths_are_bit_identical(packed, rng, tmp_path, size, residual):
     """As tests/test_dense.py:226-330: the x-slab decode (5 block planes over
@@ -272,3 +277,60 @@ def test_replicated_constants_are_the_first_devices_bits(packed):
         assert torch.equal(rep["score_prep"].operand, first["score_prep"].operand)
         assert torch.equal(rep["folded_tail"]["k"], first["folded_tail"]["k"])
     assert params_to_jax(codec.params)["vq"]["embedding"].shape == (64, 32)
+
+
+@pytest.mark.parametrize("op", ["conv3d", "row_blocks"])
+def test_row_blocks_and_blocked_conv3d_match_whole_and_jax(rng, op):
+    """37 rows in blocks of ROW_BLOCK["cpu"] = 16 (a ragged last block of 5
+    padded with 11 zero rows): every call takes 16 rows, the output has
+    37 rows, each as the whole-batch call (training's form) and the JAX
+    package compute it, and a row's bits do not depend on where the batch
+    starts (a shard's rows sit elsewhere in its blocks)."""
+    n, rows = 37, blocks.ROW_BLOCK["cpu"]
+    if op == "conv3d":
+        p = {"w": (0.1 * rng.standard_normal((3, 3, 3, 8, 16))).astype(np.float32),
+             "b": rng.standard_normal(16).astype(np.float32)}
+        x = rng.standard_normal((n, 4, 4, 4, 8)).astype(np.float32)
+        port = tree_to_torch(p, torch.device("cpu"))
+        ref = np.asarray(jblocks.conv3d(jax.tree.map(jnp.asarray, p), jnp.asarray(x),
+                                        padding=1))
+
+        def fn(t):
+            return blocks.conv3d(port, t, padding=1)
+    else:
+        b = rng.standard_normal((64, 16)).astype(np.float32)
+        x = rng.standard_normal((n, 64)).astype(np.float32)
+        ref = np.asarray(jnp.asarray(x) @ jnp.asarray(b))
+
+        def fn(t):
+            return blocks.row_blocks(t, torch.from_numpy(b))
+    xt = torch.from_numpy(x)
+    calls = []
+
+    def spy(t):
+        calls.append(t.shape[0])
+        return fn(t)
+
+    with torch.inference_mode():
+        got = blocks.row_wise(spy, xt)
+    assert calls == [rows] * -(-n // rows)
+    assert tuple(got.shape) == ref.shape
+    whole = fn(xt)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-5)
+    with torch.inference_mode():
+        for start in (3, rows, 2 * rows, n - 1):
+            assert torch.equal(fn(xt[start:]), got[start:]), start
+
+
+def test_cpu_stages_keep_a_rows_bits():
+    """`tools/batch_invariance.py` on the CPU: every stage of the flagship's,
+    the reference arch's and scalar_rvq2's encode and decode steps (the
+    kernels' plain versions included) gives a row of a 32-leaf batch the
+    same bits in blocks of 16, 8, 4, 2 and 1 leaves, in bf16 and f32."""
+    out = batch_invariance.stages("cpu", n=32, sizes=(16, 8, 4, 2, 1))
+    assert set(out["stages"]) == set(batch_invariance.MODELS)
+    for model, by_dtype in out["stages"].items():
+        for dtype, stages in by_dtype.items():
+            moved = {k: v for k, v in stages.items() if not all(v.values())}
+            assert not moved, (model, dtype, moved)

@@ -130,13 +130,55 @@ def init_channel_attention(gen: torch.Generator, channels: int, reduction: int =
 # ---------------------------------------------------------------------------
 
 
+# Rows of each fixed-shape block, by device type: on the card the size
+# measured to cost least (`tools/batch_invariance.py`); on the CPU, which
+# runs the tests' small batches, a size that pads a small shard cheaply.
+ROW_BLOCK = {"cuda": 1024, "cpu": 16}
+
+
+def in_row_blocks(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for a row-wise fn, computed on blocks of exactly ROW_BLOCK (of
+    x's device) rows of x: the last block is padded with zero rows, whose
+    outputs are dropped. Every call then has one shape whatever x's row
+    count."""
+    rows = ROW_BLOCK[x.device.type]
+    n = x.shape[0]
+    if n == rows:
+        return fn(x)
+    outs = []
+    for i in range(0, n, rows):
+        block = x[i:i + rows]
+        m = block.shape[0]
+        if m < rows:
+            block = torch.cat([block, block.new_zeros((rows - m,) + block.shape[1:])])
+        outs.append(fn(block)[:m])
+    return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+
+def row_wise(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for a row-wise fn that cuBLAS, cuDNN or the CPU's libraries
+    compute in an order chosen by the call's shape: at inference (the
+    codec's steps run in `torch.inference_mode`) in fixed-shape blocks
+    (`in_row_blocks`), so a row gets the same bits in a batch of any size
+    and a mesh, whose devices run shards of each batch, writes one
+    device's files; in training, where a rank runs one batch shape, in one
+    call. On the card a row's bits from one call moved with the rows beside
+    it (convs and products at 4096, 2048, 1024 and 512 rows); on the CPU a
+    product of 2-16 rows sums in another order than one of 32 or more."""
+    return in_row_blocks(fn, x) if torch.is_inference_mode_enabled() else fn(x)
+
+
 def conv3d(params: Params, x: torch.Tensor, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
-    """3D convolution: NDHWC x OIDHW -> NDHWC."""
+    """3D convolution: NDHWC x OIDHW -> NDHWC (`row_wise`)."""
     w = params["w"].to(x.dtype)
     b = params["b"].to(x.dtype) if "b" in params else None
-    y = F.conv3d(x.permute(0, 4, 1, 2, 3), w, b, stride=stride, padding=padding)
-    return y.permute(0, 2, 3, 4, 1)
+
+    def conv(t):
+        y = F.conv3d(t.permute(0, 4, 1, 2, 3), w, b, stride=stride, padding=padding)
+        return y.permute(0, 2, 3, 4, 1)
+
+    return row_wise(conv, x)
 
 
 def no_tf32(device: torch.device):
@@ -196,20 +238,9 @@ def residual_block(params: Params, x: torch.Tensor, *, groups: int = 8,
     return x + h * _rounded(scale, x.dtype)
 
 
-# Rows a product of `row_blocks` takes at a time.
-ROW_BLOCK = 1024
-
-
 def row_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a (N, K) @ b (K, M), ROW_BLOCK rows of a at a time. cuBLAS picks its
-    kernel, and with it the order of a row's sum, by the shapes: on the
-    card a row's bits from one product moved with N (at 4096, 2048, 1024
-    and 512 rows), and a mesh, whose devices run shards of each batch, wrote
-    other near-tie indices than one device. In blocks, a row gets the same
-    bits in any batch of a multiple of ROW_BLOCK rows."""
-    if a.shape[0] <= ROW_BLOCK:
-        return a @ b
-    return torch.cat([a[i:i + ROW_BLOCK] @ b for i in range(0, a.shape[0], ROW_BLOCK)])
+    """a (N, K) @ b (K, M) (`row_wise`)."""
+    return row_wise(lambda t: t @ b, a)
 
 
 def channel_attention(params: Params, x: torch.Tensor) -> torch.Tensor:

@@ -305,12 +305,12 @@ def quantize_infer(vq: VQState, flat: torch.Tensor, cfg: ModelConfig,
 def encode_to_indices(params: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Inference encode on x's device: leaves (B,8,8,8,C) -> indices
     (B,4,4,4), or (B,4,4,4,S) for residual-VQ models; uint8 for K <= 256,
-    else int32 (the JAX package returns uint16). On the card through the
+    else uint16, as the JAX package returns them. On the card through the
     nearest-code and dequantize kernels (`quantize_infer`)."""
     z = encoder_apply(params["encoder"], x, cfg)
     idx, _ = quantize_infer(VQState(**params["vq"]), z.reshape(-1, cfg.embedding_dim), cfg)
     idx = idx.reshape((z.shape[0],) + cfg.index_shape)
-    return idx.to(torch.uint8) if cfg.num_embeddings <= 256 else idx
+    return idx.to(torch.uint8 if cfg.num_embeddings <= 256 else torch.uint16)
 
 
 # Blocks per call of the dequantize kernel in decode_from_indices: its rows

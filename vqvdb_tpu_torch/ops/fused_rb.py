@@ -112,7 +112,9 @@ def residual_block_fused(params: Dict, x: torch.Tensor, *, groups: int = 8,
     small = [params["gn1"]["scale"], params["gn1"]["bias"], convs[0]["b"],
              params["gn2"]["scale"], params["gn2"]["bias"], convs[1]["b"]]
     if not on_card(x, *(c["w"] for c in convs), *small):
-        return residual_block_plain(params, x, groups, res_scale)
+        # The plain version's convs sum in an order chosen by shape, as the
+        # codec's own convs do: in fixed-shape blocks at inference.
+        return blocks.row_wise(lambda t: residual_block_plain(params, t, groups, res_scale), x)
     require(x.is_contiguous(), "x must be a dense NDHWC tensor "
             f"(strides {x.stride()}); the kernel makes no copy")
     require(x.data_ptr() % 16 == 0, "x is not 16-byte aligned")

@@ -15,9 +15,9 @@ are the 8^3 x C_out voxels in the same order.
 The GEMM is a plain large product, so it stays `torch.matmul`: the
 features and the operator are rounded to the compute dtype and then
 multiplied in f32, which is the JAX package's bf16 x bf16 -> f32 product.
-It runs on blocks of rows (`blocks.row_blocks`), so that a row's leaves do
-not depend on how many rows share its batch (a mesh's devices decode
-shards of it).
+At inference it runs on fixed-shape blocks of rows (`blocks.row_blocks`),
+so that a row's leaves do not depend on how many rows share its batch (a
+mesh's devices decode shards of it).
 """
 
 from __future__ import annotations
