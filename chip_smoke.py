@@ -152,7 +152,18 @@ Phases, in this order; any failure raises and the script exits non-zero:
      several cards, the flagship on a mesh of every card at batch 4096,
      2048 and 1024 against one card at the same batch size. Logs
      `[layout] <part> {...}`.
-Phases 3 and 15-18 log their seconds (`[phaseN]`).
+ 19. bench: `vqvdb_tpu_torch.bench.run()`, what `python -m
+     vqvdb_tpu_torch.cli bench` prints: the decode and encode rates of the
+     device program (a step captured in a CUDA graph, replayed, fenced by a
+     readback), vec3, residual-VQ and dense rows, the reference-shaped
+     baseline and the MFU. Every rate must be finite and > 0, each captured
+     row's replay bit-equal to its eager step, each capture must record its
+     row's kernel launches, and on an H100 SXM the decode and encode MFU
+     lie in (0, 1]. Then the baseline's batch-64 step against the same step
+     at 1,024 rows in turns (the padding of `models/blocks.py`). Logs
+     `[bench] card: <nvidia-smi>`, `[bench] {...}` (the bench's line),
+     `[bench] rows [...]` and `[bench] padding {...}`.
+Phases 3 and 15-19 log their seconds (`[phaseN]`).
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -2716,6 +2727,108 @@ def layout_phase(models, workdir: Path):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the CLI's bench
+# ---------------------------------------------------------------------------
+
+BENCH_EXTRA_KEYS = ("vec3_decode_leaves_per_sec", "vec3_encode_leaves_per_sec",
+                    "rvq2_decode_leaves_per_sec", "rvq2_encode_leaves_per_sec",
+                    "dense_decode_leaves_per_sec", "dense_encode_leaves_per_sec",
+                    "dense_decode_device_leaves_per_sec",
+                    "dense_encode_device_leaves_per_sec")
+H100_SXM = "NVIDIA H100 80GB HBM3"
+
+
+def _bench_capture_launches(row: str, dense_steps: int):
+    """The launches one captured step of a bench row must record."""
+    if row.startswith("baseline"):
+        row = "decode"
+    return {"decode": {"dequantize": 1}, "encode": {"score_argmin": 1},
+            "vec3_decode": {"dequantize": 1}, "vec3_encode": {"score_argmin": 1},
+            "rvq2_decode": {"dequantize": 2},
+            "rvq2_encode": {"nearest_indices": 2, "dequantize": 2},
+            "dense_decode_device": {"dequantize": dense_steps},
+            "dense_encode_device": {"score_argmin": dense_steps,
+                                    "fused_rb": dense_steps}}[row]
+
+
+def bench_padding(turns=(64, 1024, 1024, 64)):
+    """The baseline's decode step (f32, the tail unfolded) at batch 64, which
+    `models/blocks.py` pads to one 1,024-row block, against the same step at
+    1,024 rows, in turns: {batch: [leaves/s]}, ms a step, and the leaves/s
+    that the padding costs at batch 64 (factor = rate at 1,024 / at 64)."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch import bench
+    from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+
+    cfg = ModelConfig()
+    params = bench.untrained_params(cfg)
+    idx = np.random.default_rng(0).integers(0, 256, (max(turns), 4, 4, 4)).astype(np.uint8)
+    rates, ms = {b: [] for b in turns}, {b: [] for b in turns}
+    for b in turns:
+        codec = VQCodec(params, cfg, CodecConfig(batch_size=b, compute_dtype="float32",
+                                                 fuse_decoder_tail=False,
+                                                 fuse_final_conv=False), device="cuda")
+        rec = {}
+        with bench.f32_math():  # as the bench's baseline runs
+            rates[b].append(bench.fenced_rate(
+                codec._decode_step, torch.from_numpy(idx[:b]).cuda(),
+                bench.CARD.baseline_steps, bench.perturb_indices(256), bench.consume_sum,
+                record=rec))
+        ms[b].append(rec["ms_per_step"])
+        if not rec["bit_equal"]:
+            raise AssertionError(f"padding batch {b}: replay differs from the eager step")
+    lo, hi = min(turns), max(turns)
+    return {"leaves_per_s": rates, "ms_per_step": ms,
+            "factor": float(np.median(rates[hi]) / np.median(rates[lo]))}
+
+
+def bench_phase(smi: str, kind: str):
+    """Phase 19: `vqvdb_tpu_torch.bench.run()` (what `python -m
+    vqvdb_tpu_torch.cli bench` prints) at its card sizes, the launch
+    counters reset before and read after. Fails unless every rate is finite
+    and > 0, every captured row's replay is bit-equal to its eager step, each
+    capture recorded its row's kernel launches, and on an H100 SXM the decode
+    and encode MFU lie in (0, 1]. Then `bench_padding`."""
+    import math
+
+    from vqvdb_tpu_torch import bench
+
+    checks = []
+    reset_launches()
+    line = bench.run("cuda", checks=checks)
+    launches = read_launches()
+    log(f"[bench] card: {smi}")
+    log(f"[bench] {json.dumps(line)}")
+    log(f"[bench] rows {json.dumps(checks)}")
+    missing = [k for k in BENCH_EXTRA_KEYS if k not in line]
+    if missing:
+        raise AssertionError(f"bench: rows missing {missing}")
+    rates = {k: v for k, v in line.items()
+             if k == "value" or k.endswith(("_per_sec", "_per_chip"))}
+    rates.update({f"baseline_run_{i}": r for i, r in enumerate(line["baseline_runs"])})
+    for key, r in rates.items():
+        if not (isinstance(r, (int, float)) and math.isfinite(r) and r > 0):
+            raise AssertionError(f"bench: {key} = {r}")
+    dense_steps = -(-math.prod(bench.CARD.dense_blocks) // bench.CARD.dense_batch)
+    for rec in checks:
+        if not rec["bit_equal"]:
+            raise AssertionError(f"bench {rec['row']}: the replayed graph's output differs "
+                                 f"from the eager step's (max abs {rec['max_abs_diff']})")
+        expect_launches(f"bench {rec['row']} capture", rec["launches"],
+                        **_bench_capture_launches(rec["row"], dense_steps))
+    if kind == H100_SXM:
+        for key in ("decode_mfu", "encode_mfu"):
+            if line[key] is None or not 0.0 < line[key] <= 1.0:
+                raise AssertionError(f"bench: {key} = {line[key]} on an {kind}")
+    padding = bench_padding()
+    log(f"[bench] padding {json.dumps(padding)}")
+    return line, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2865,6 +2978,9 @@ def main() -> int:
         layout_res = layout_phase(layout_models(tree, cfg, codec, grid, refs,
                                                 args.side_leaves, others), Path(tmp))
     keep_dir.cleanup()
+    t0 = time.perf_counter()
+    _, bench_launches = bench_phase(smi, kind)
+    log(f"[phase19] {time.perf_counter() - t0:.1f} s")
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
@@ -2902,6 +3018,10 @@ def main() -> int:
     launches["dequantize_layout"] = many["scalar"]["decode"]["dequantize"]
     launches["fused_rb_layout"] = many["scalar_reference"]["v3_encode"]["fused_rb"]
     launches["nearest_indices_layout"] = many["scalar_rvq2"]["v3_encode"]["nearest_indices"]
+    # Phase 19's bench: each kernel counted once per capture and eager call
+    # (a replayed graph launches without its wrapper).
+    for name, count in bench_launches.items():
+        launches[f"{name}_bench"] = count
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(f"[launches] {json.dumps(launches)}")

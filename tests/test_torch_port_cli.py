@@ -543,7 +543,9 @@ def test_extract_matches_jax(tmp_path, capsys):
 
 
 def test_bench_runs_the_ports_round_trip(capsys):
-    rc, out = _run(cli, ["bench", "--leaves", "48", "--batch-size", "32", *CPU], capsys)
+    from vqvdb_tpu_torch.tools import roundtrip
+
+    rc, out = _run(roundtrip.main, ["--leaves", "48", "--batch-size", "32", *CPU], capsys)
     assert rc == 0 and out["device"] == "cpu" and out["leaves"] == 48
     assert out["psnr_db"] > 30.0 and out["compress_leaves_per_s"] > 0
     assert set(out["host_seconds"]) == {"quantize_residual", "write_frames", "read_frames",

@@ -839,3 +839,54 @@ def test_card_indices_beyond_256_codes_are_uint16(rng):
     with torch.no_grad():
         ref = decode_from_indices(cpu, host, cfg)
     torch.testing.assert_close(rec, ref, rtol=0, atol=1e-4)
+
+
+BENCH_ROWS = ("decode", "encode", "vec3_decode", "vec3_encode", "rvq2_decode",
+              "rvq2_encode", "dense_decode_device", "dense_encode_device",
+              "baseline_1", "baseline_2", "baseline_3")
+
+
+@pytest.fixture(scope="module")
+def bench_on_card():
+    """`vqvdb_tpu_torch.bench.run` on the card at few steps and a 16^3-block
+    volume (2 dense steps of 2,048): (its line, {row: record})."""
+    from vqvdb_tpu_torch import bench
+
+    _card()
+    checks = []
+    line = bench.run("cuda", checks=checks, decode_steps=8, encode_steps=8,
+                     baseline_steps=8, vec3_steps=(8, 8), rvq2_steps=(8, 8),
+                     dense_blocks=(16, 16, 16), dense_steps=4)
+    return line, {rec["row"]: rec for rec in checks}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row", BENCH_ROWS)
+def test_card_bench_row_replays_its_eager_step(bench_on_card, row):
+    """Each bench row's captured step, replayed, gives its eager step's output
+    bit for bit, and its capture recorded the row's kernel launches."""
+    line, rows = bench_on_card
+    rec = rows[row]
+    assert rec["bit_equal"], rec
+    kernels = {"encode": "score_argmin", "vec3_encode": "score_argmin",
+               "rvq2_encode": "nearest_indices", "dense_encode_device": "score_argmin"}
+    assert rec["launches"][kernels.get(row, "dequantize")] >= 1, rec
+    assert rec["ms_per_step"] > 0
+    assert line["device"] == torch.cuda.get_device_name()
+
+
+@pytest.mark.cuda
+def test_card_fenced_rate_raises_on_a_host_sync():
+    """A step that reads a value back to the host cannot be captured:
+    fenced_rate raises and does not time the eager loop instead."""
+    from vqvdb_tpu_torch import bench
+
+    dev = _card()
+
+    def syncing(x):
+        return x * float(x.sum().item())
+
+    with pytest.raises(RuntimeError):
+        bench.fenced_rate(syncing, torch.ones(64, device=dev), 4, lambda x: x,
+                          bench.consume_sum)
+    torch.cuda.synchronize()

@@ -8,7 +8,7 @@ OpenVDB tools / bench / serve / torch and ONNX import and export.
     python -m vqvdb_tpu_torch.cli encode scene.vdb scene.vqvdb --model m.vqmodel
     python -m vqvdb_tpu_torch.cli decode scene.vqvdb recon.vdb --model m.vqmodel
     python -m vqvdb_tpu_torch.cli info scene.vqvdb
-    python -m vqvdb_tpu_torch.cli bench --model models/scalar.vqmodel
+    python -m vqvdb_tpu_torch.cli bench
     python -m vqvdb_tpu_torch.cli serve --model m.vqmodel --port 8990
     python -m vqvdb_tpu_torch.cli export-onnx m.vqmodel onnx/ --embed-header onnx/bin_onnx.h
     python -m vqvdb_tpu_torch.cli import-torch ref.pth m.vqmodel
@@ -38,14 +38,11 @@ import argparse
 import json
 import os
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
 
 from vqvdb_tpu_torch.utils.errors import VqvdbError
-
-REPO_MODELS = Path(__file__).resolve().parent.parent / "models"
 
 
 def _error(msg: str) -> int:
@@ -317,59 +314,10 @@ def _cmd_verify(args) -> int:
     return 0 if out["ok"] else 1
 
 
-def _bench_field(seed: int, n_leaves: int):
-    """A LeafGrid of up to `n_leaves` leaves of a seeded sum of Gaussian
-    blobs in [0, 1], sparsified at 0.02."""
-    from vqvdb_tpu_torch.vdb.grid import LeafGrid
-
-    rng = np.random.default_rng(seed)
-    side = 8 * max(4, int(np.ceil((4 * n_leaves) ** (1 / 3))))
-    shape = (side, side, side)
-    axes = [np.arange(s, dtype=np.float32) for s in shape]
-    dense = np.zeros(shape, np.float32)
-    for _ in range(12):
-        c = rng.uniform(0, side, 3)
-        s = rng.uniform(side / 16, side / 6)
-        g = [np.exp(-((a - ci) ** 2) / (2 * s * s)).astype(np.float32) for a, ci in zip(axes, c)]
-        dense += rng.uniform(0.3, 1.0) * g[0][:, None, None] * g[1][None, :, None] * g[2]
-    np.clip(dense, 0.0, 1.0, out=dense)
-    dense[dense < 0.02] = 0.0
-    full = LeafGrid.from_dense("density", dense)
-    n = min(n_leaves, full.num_leaves)
-    return LeafGrid("density", full.origins[:n], full.leaves[:n])
-
-
 def _cmd_bench(args) -> int:
-    """The port's own round trip: a seeded field -> v3 -> leaves, timed after
-    a warm-up, with PSNR and the host's share."""
-    import tempfile
+    from vqvdb_tpu_torch import bench
 
-    from vqvdb_tpu_torch.vdb.grid import psnr
-
-    codec = _make_codec(args)
-    grid = _bench_field(args.seed, args.leaves)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "bench.vqvdb"
-        t0 = time.perf_counter()
-        codec.compress(grid, path)  # warm-up: kernel builds, allocations
-        codec.decompress(path)
-        warm = time.perf_counter() - t0
-        cstats = codec.compress(grid, path)
-        grids, dstats = codec.decompress(path)
-    device = str(codec.device)
-    if codec.device.type == "cuda":
-        import torch
-
-        device = torch.cuda.get_device_name(codec.device)
-    out = {"model": str(args.model), "device": device, "leaves": grid.num_leaves,
-           "batch_size": args.batch_size, "compute_dtype": args.compute_dtype,
-           "warmup_seconds": warm,
-           "compress_leaves_per_s": cstats["leaves_per_sec"],
-           "decompress_leaves_per_s": dstats["leaves_per_sec"],
-           "bytes": cstats["bytes"], "ratio": grid.leaves.nbytes / cstats["bytes"],
-           "psnr_db": psnr(grids[0].leaves, grid.leaves),
-           "host_seconds": {**cstats["host_seconds"], **dstats["host_seconds"]}}
-    print(json.dumps(_rounded(out, 4)))
+    bench.main(device=args.device)
     return 0
 
 
@@ -885,11 +833,8 @@ def build_parser() -> argparse.ArgumentParser:
     _codec_options(pvf)
     pvf.set_defaults(func=_cmd_verify)
 
-    pb = sub.add_parser("bench", help="Time the port's round trip on a seeded field.")
-    pb.add_argument("--model", default=str(REPO_MODELS / "scalar.vqmodel"))
-    pb.add_argument("--leaves", type=int, default=16384)
-    pb.add_argument("--seed", type=int, default=0)
-    _codec_options(pb)
+    pb = sub.add_parser("bench", help="Run the decode-throughput benchmark.")
+    _device_option(pb)
     pb.set_defaults(func=_cmd_bench)
 
     pxv = sub.add_parser("extract", help="Extract .vdb leaves into npy files.")
