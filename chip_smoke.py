@@ -152,18 +152,34 @@ Phases, in this order; any failure raises and the script exits non-zero:
      several cards, the flagship on a mesh of every card at batch 4096,
      2048 and 1024 against one card at the same batch size. Logs
      `[layout] <part> {...}`.
- 19. bench: `vqvdb_tpu_torch.bench.run()`, what `python -m
-     vqvdb_tpu_torch.cli bench` prints: the decode and encode rates of the
+ 19. bench: `vqvdb_tpu_torch.bench.run(data_parallel=True)`, what `python
+     -m vqvdb_tpu_torch.bench --data-parallel` prints (`cli bench` prints
+     it without the data-parallel keys): the decode and encode rates of the
      device program (a step captured in a CUDA graph, replayed, fenced by a
      readback), vec3, residual-VQ and dense rows, the reference-shaped
-     baseline and the MFU. Every rate must be finite and > 0, each captured
+     baseline, the MFU, and `bench.py --data-parallel`'s eight keys (the
+     mesh codec over every visible card on a 100,000-leaf file and the host
+     stages of its step). Every rate and time must be finite and > 0,
+     `mesh_devices` the visible cards, each captured
      row's replay bit-equal to its eager step, each capture must record its
      row's kernel launches, and on an H100 SXM the decode and encode MFU
      lie in (0, 1]. Then the baseline's batch-64 step against the same step
      at 1,024 rows in turns (the padding of `models/blocks.py`). Logs
      `[bench] card: <nvidia-smi>`, `[bench] {...}` (the bench's line),
      `[bench] rows [...]` and `[bench] padding {...}`.
-Phases 3 and 15-19 log their seconds (`[phaseN]`).
+ 20. data-parallel bench: `vqvdb_tpu_torch.bench_dp.bench_mesh_size` (the
+     reference arch, untrained, bf16, batch 2,048, 100,000 leaves) with no
+     mesh, on a mesh of every visible card and on one-card meshes of 2, 4
+     and 8 entries (the shard shapes of 2-, 4- and 8-card hosts): compress,
+     the timed `decode_stream` rate, and on a mesh the host stages (scatter,
+     full gather, the codec's per-shard gather, the fenced step) and the
+     host-bound ceilings. Every rate and time must be finite and > 0, the
+     per-shard gather bit-equal to the full gather, each row's file and
+     decoded leaves the no-mesh row's, and score-argmin and the fused block
+     (in the compress) and dequantize (in the timed pass) launched once per
+     shard step: 49 / 98 / 196 / 391 on meshes of 1 / 2 / 4 / 8. Logs
+     `[dp] <mesh>: {...}` per row and `[dp] card: <nvidia-smi>`.
+Phases 3 and 15-20 log their seconds (`[phaseN]`).
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -2787,28 +2803,35 @@ def bench_padding(turns=(64, 1024, 1024, 64)):
 
 
 def bench_phase(smi: str, kind: str):
-    """Phase 19: `vqvdb_tpu_torch.bench.run()` (what `python -m
-    vqvdb_tpu_torch.cli bench` prints) at its card sizes, the launch
-    counters reset before and read after. Fails unless every rate is finite
-    and > 0, every captured row's replay is bit-equal to its eager step, each
-    capture recorded its row's kernel launches, and on an H100 SXM the decode
-    and encode MFU lie in (0, 1]. Then `bench_padding`."""
+    """Phase 19: `vqvdb_tpu_torch.bench.run(data_parallel=True)` (what
+    `python -m vqvdb_tpu_torch.bench --data-parallel` prints; `cli bench`
+    prints it without the data-parallel keys) at its card sizes, the launch
+    counters reset before and read after. Fails unless every rate and time
+    is finite and > 0, `mesh_devices` is the visible cards, every captured
+    row's replay is bit-equal to its eager step, each capture recorded its
+    row's kernel launches, and on an H100 SXM the decode and encode MFU lie
+    in (0, 1]. Then `bench_padding`."""
     import math
 
     from vqvdb_tpu_torch import bench
 
+    import torch
+
     checks = []
     reset_launches()
-    line = bench.run("cuda", checks=checks)
+    line = bench.run("cuda", checks=checks, data_parallel=True)
     launches = read_launches()
     log(f"[bench] card: {smi}")
     log(f"[bench] {json.dumps(line)}")
     log(f"[bench] rows {json.dumps(checks)}")
-    missing = [k for k in BENCH_EXTRA_KEYS if k not in line]
+    missing = [k for k in BENCH_EXTRA_KEYS + bench.DP_KEYS if k not in line]
     if missing:
         raise AssertionError(f"bench: rows missing {missing}")
+    if line["mesh_devices"] != torch.cuda.device_count():
+        raise AssertionError(f"bench: mesh_devices {line['mesh_devices']}, "
+                             f"{torch.cuda.device_count()} cards visible")
     rates = {k: v for k, v in line.items()
-             if k == "value" or k.endswith(("_per_sec", "_per_chip"))}
+             if k == "value" or k.endswith(("_per_sec", "_per_chip", "_per_batch"))}
     rates.update({f"baseline_run_{i}": r for i, r in enumerate(line["baseline_runs"])})
     for key, r in rates.items():
         if not (isinstance(r, (int, float)) and math.isfinite(r) and r > 0):
@@ -2827,6 +2850,69 @@ def bench_phase(smi: str, kind: str):
     padding = bench_padding()
     log(f"[bench] padding {json.dumps(padding)}")
     return line, launches
+
+
+# ---------------------------------------------------------------------------
+# Phase 20: the data-parallel bench
+# ---------------------------------------------------------------------------
+
+DP_LEAVES = 100_000  # bench.py --data-parallel's file on the card
+DP_BATCH = 2048
+DP_ENTRIES = (2, 4, 8)  # one-card meshes: the shard shapes of 2-, 4- and 8-card hosts
+
+
+def dp_phase():
+    """Phase 20: `bench_dp.bench_mesh_size` (bf16, batch 2,048, 100,000
+    leaves) with no mesh, on a mesh of every visible card and on one-card
+    meshes of DP_ENTRIES entries, the launch counters reset before and read
+    after. Fails unless every rate and time is finite and > 0 (the per-shard
+    gather bit-equal to the full gather: `host_stage_times` raises
+    otherwise), each row's file and decoded leaves are the no-mesh row's,
+    and the compress and the timed decode pass launch score-argmin and the
+    fused block (dequantize) once per shard step. Returns (rows, launches)."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch import bench_dp
+    from vqvdb_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    cases = [("no mesh", 0, None), (f"every card ({cards})", cards, make_mesh())]
+    cases += [(f"one card, {e} entries", e, _one_card_mesh(e)) for e in DP_ENTRIES]
+    ref = None
+    rows = {}
+    reset_launches()
+    for label, n, mesh in cases:
+        rec = {}
+        t1 = time.perf_counter()
+        row = bench_dp.bench_mesh_size(n, DP_BATCH, DP_LEAVES, "bfloat16", "cuda", mesh=mesh,
+                                       record=rec)
+        steps = _shard_steps(DP_LEAVES, DP_BATCH, max(n, 1))
+        log(f"[dp] {label}: {json.dumps(row)} shard steps {steps}, compress launches "
+            f"{json.dumps(rec['compress_launches'])}, decode launches "
+            f"{json.dumps(rec['decode_launches'])}, {time.perf_counter() - t1:.1f} s")
+        for key, v in row.items():
+            if key.endswith(("_per_sec", "_per_batch")) and not (math.isfinite(v) and v > 0):
+                raise AssertionError(f"dp {label}: {key} = {v}")
+        expect_launches(f"dp {label} compress", rec["compress_launches"],
+                        score_argmin=steps, fused_rb=steps)
+        expect_launches(f"dp {label} decode", rec["decode_launches"], dequantize=steps)
+        if ref is None:
+            if not np.isfinite(rec["leaves"]).all():
+                raise AssertionError("dp: the no-mesh decode is not finite")
+            ref = rec
+        elif rec["file"] != ref["file"]:
+            raise AssertionError(f"dp {label}: another file than with no mesh")
+        elif rec["leaves"].tobytes() != ref["leaves"].tobytes():
+            raise AssertionError(f"dp {label}: other decoded leaves than with no mesh")
+        rows[label] = row
+    launches = read_launches()
+    log(f"[dp] card: {smi_line()}")
+    log(f"[phase20] {time.perf_counter() - t0:.1f} s")
+    return rows, launches
 
 
 def main() -> int:
@@ -2981,6 +3067,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _, bench_launches = bench_phase(smi, kind)
     log(f"[phase19] {time.perf_counter() - t0:.1f} s")
+    _, dp_launches = dp_phase()
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
@@ -3022,6 +3109,10 @@ def main() -> int:
     # (a replayed graph launches without its wrapper).
     for name, count in bench_launches.items():
         launches[f"{name}_bench"] = count
+    # Phase 20's data-parallel bench: the reference arch's compress and the
+    # decode of its file, on every mesh.
+    for name in ("score_argmin", "fused_rb", "dequantize"):
+        launches[f"{name}_dp"] = dp_launches[name]
     for row in kernels:
         row["launches"] = launches[row["name"]]
     log(f"[launches] {json.dumps(launches)}")

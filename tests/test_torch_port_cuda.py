@@ -848,15 +848,16 @@ BENCH_ROWS = ("decode", "encode", "vec3_decode", "vec3_encode", "rvq2_decode",
 
 @pytest.fixture(scope="module")
 def bench_on_card():
-    """`vqvdb_tpu_torch.bench.run` on the card at few steps and a 16^3-block
-    volume (2 dense steps of 2,048): (its line, {row: record})."""
+    """`vqvdb_tpu_torch.bench.run` on the card at few steps, a 16^3-block
+    volume (2 dense steps of 2,048) and, with data_parallel, a 10,000-leaf
+    file: (its line, {row: record})."""
     from vqvdb_tpu_torch import bench
 
     _card()
     checks = []
-    line = bench.run("cuda", checks=checks, decode_steps=8, encode_steps=8,
-                     baseline_steps=8, vec3_steps=(8, 8), rvq2_steps=(8, 8),
-                     dense_blocks=(16, 16, 16), dense_steps=4)
+    line = bench.run("cuda", checks=checks, data_parallel=True, decode_steps=8,
+                     encode_steps=8, baseline_steps=8, vec3_steps=(8, 8), rvq2_steps=(8, 8),
+                     dense_blocks=(16, 16, 16), dense_steps=4, dp_leaves=10_000)
     return line, {rec["row"]: rec for rec in checks}
 
 
@@ -890,3 +891,48 @@ def test_card_fenced_rate_raises_on_a_host_sync():
         bench.fenced_rate(syncing, torch.ones(64, device=dev), 4, lambda x: x,
                           bench.consume_sum)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_card_bench_data_parallel_keys(bench_on_card):
+    """run(data_parallel=True) adds bench.py's eight keys over every visible
+    card, each rate and time finite and > 0."""
+    from vqvdb_tpu_torch import bench
+
+    line, _ = bench_on_card
+    assert line["mesh_devices"] == torch.cuda.device_count()
+    for key in bench.DP_KEYS[1:]:
+        assert np.isfinite(line[key]) and line[key] > 0, (key, line[key])
+
+
+@pytest.mark.cuda
+def test_card_bench_dp_one_card_mesh_of_two():
+    """bench_dp.bench_mesh_size on a one-card mesh of 2 entries (the shard
+    shapes of two cards): its per-shard gather bit-equal to the full gather
+    (host_stage_times raises otherwise), its file and decoded leaves those
+    of no mesh, one score-argmin and one fused-block launch per encode shard
+    step and one dequantize launch per decode shard step."""
+    from vqvdb_tpu_torch import bench_dp
+    from vqvdb_tpu_torch.parallel.mesh import Mesh
+
+    dev = _card()
+    bs, n = 512, 3000
+    recs = [{}, {}]
+    rows = [bench_dp.bench_mesh_size(0, bs, n, "bfloat16", dev, record=recs[0]),
+            bench_dp.bench_mesh_size(2, bs, n, "bfloat16",
+                                     mesh=Mesh((torch.device("cuda", dev.index or 0),) * 2, 2),
+                                     record=recs[1])]
+    assert recs[1]["file"] == recs[0]["file"]
+    assert recs[1]["leaves"].tobytes() == recs[0]["leaves"].tobytes()
+    assert np.isfinite(recs[0]["leaves"]).all()
+    for size, row, rec in zip((1, 2), rows, recs):
+        per = bs // size
+        steps = sum(min(size, -(-min(bs, n - s) // per)) for s in range(0, n, bs))
+        assert rec["compress_launches"]["score_argmin"] == steps
+        assert rec["compress_launches"]["fused_rb"] == steps
+        assert rec["decode_launches"]["dequantize"] == steps
+        assert row["leaves"] == n and row["n_devices"] == size
+        for key, v in row.items():
+            if key.endswith(("_per_sec", "_per_batch")):
+                assert np.isfinite(v) and v > 0, (key, v)
+    assert "host_gather_shards_ms_per_batch" in rows[1]

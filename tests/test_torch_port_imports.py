@@ -47,6 +47,6 @@ def test_every_port_module_imports_without_jax():
                  "vqvdb_tpu_torch.integrations.houdini", "vqvdb_tpu_torch.parallel",
                  "vqvdb_tpu_torch.parallel.mesh", "vqvdb_tpu_torch.parallel.distributed",
                  "vqvdb_tpu_torch.ops.subpixel", "vqvdb_tpu_torch.bench",
-                 "vqvdb_tpu_torch.tools.roundtrip"):
+                 "vqvdb_tpu_torch.bench_dp", "vqvdb_tpu_torch.tools.roundtrip"):
         assert want in names
     assert leaked == "LEAKED []"

@@ -3,6 +3,7 @@ counterpart of the JAX package's `bench.py` (the repo root's; `python -m
 vqvdb_tpu.cli bench` runs it).
 
     python -m vqvdb_tpu_torch.cli bench [--device cuda|cpu]
+    python -m vqvdb_tpu_torch.bench [--data-parallel] [--device cuda|cpu]
 
 prints one JSON line with the keys of `bench.py`'s line: `metric`
 ("decode_leaves_per_sec_per_chip"), `value`, `unit`, `vs_baseline`,
@@ -10,6 +11,10 @@ prints one JSON line with the keys of `bench.py`'s line: `metric`
 `encoder_arch`, `decode_mfu` and `encode_mfu`, and on the card the vec3,
 residual-VQ (S=2) and dense-volume rows; then `device` (the card's name, or
 "cpu") and `peak_bf16_tflops`, so that every number carries its card.
+With `--data-parallel` (the module's entry point only, as in the JAX
+package) the line gains `bench.py --data-parallel`'s keys (`DP_KEYS`): the
+mesh codec's end-to-end decode rate over every visible card and the host
+stages of a data-parallel step (`bench_dp.py`).
 
 Method (`fenced_rate`, the counterpart of `bench.py::_fenced_rate`): the
 body `out = step(x); acc += consume(out); x.copy_(perturb(x))` runs on
@@ -64,6 +69,7 @@ from vqvdb_tpu_torch.core.artifact import load_model_config
 from vqvdb_tpu_torch.core.config import LEAF_DIM, CodecConfig, ModelConfig
 from vqvdb_tpu_torch.core.weights import params_to_jax, resolve_device
 from vqvdb_tpu_torch.models.vqvae import init_vqvae_params
+from vqvdb_tpu_torch.parallel.mesh import make_mesh
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.runtime.dense import (
     _blocks_to_dense,
@@ -113,12 +119,18 @@ class Sizes:
     dense_payloads: int = 4
     dense_encode_reps: int = 3
     dense_steps: int = 6
+    dp_leaves: int = 100_000  # the file that `data_parallel` decodes
 
 
 CARD = Sizes(batch=2048, decode_steps=256, encode_steps=256, baseline_steps=96)
 # The JAX package's sizes off the TPU; no secondary rows there.
 OFF_CARD = Sizes(batch=256, decode_steps=6, encode_steps=4, baseline_steps=24,
-                 extra_rows=False)
+                 extra_rows=False, dp_leaves=8_192)
+# What `data_parallel` adds to the line: bench.py's keys, in its order.
+DP_KEYS = ("mesh_devices", "dp_e2e_decode_leaves_per_sec", "host_shard_ms_per_batch",
+           "host_gather_ms_per_batch", "host_gather_shards_ms_per_batch",
+           "device_step_ms_per_batch", "host_bound_ceiling_leaves_per_sec",
+           "host_bound_ceiling_shards_leaves_per_sec")
 
 
 def perturb_indices(k: int) -> Callable[[torch.Tensor], torch.Tensor]:
@@ -371,18 +383,38 @@ def _dense_rows(params, mcfg, sz: Sizes, rng, dev, checks) -> Dict[str, float]:
     return out
 
 
-def run(device=None, checks: Optional[List[Dict]] = None, **sizes) -> Dict:
+def run(device=None, checks: Optional[List[Dict]] = None, data_parallel: bool = False,
+        **sizes) -> Dict:
     """Measure every row and return the JSON object `main` prints.
     `sizes` override fields of CARD (on the card) or OFF_CARD. `checks`, if
     given, receives a record per fenced row: {"row", and on the card
     "launches" (the capture's), "bit_equal", "max_abs_diff", then
-    "ms_per_step", "lo", "hi"}."""
+    "ms_per_step", "lo", "hi"}. With `data_parallel` the line gains
+    `DP_KEYS`: `bench_dp.bench_mesh_size` over every visible card (a CPU
+    mesh of one entry off the card) at the bench's batch and `dp_leaves`
+    leaves, bf16 on the card and f32 off it, as `bench.py --data-parallel`."""
     dev = resolve_device(device)
     on_card = dev.type == "cuda"
     sz = dataclasses.replace(CARD if on_card else OFF_CARD, **sizes)
     checks = [] if checks is None else checks
     with f32_math():
-        return _run(dev, on_card, sz, checks)
+        out = _run(dev, on_card, sz, checks)
+        if data_parallel:
+            out.update(_dp_fields(dev, on_card, sz))
+    return out
+
+
+def _dp_fields(dev, on_card: bool, sz: Sizes) -> Dict:
+    """bench.py's data-parallel keys, from one `bench_mesh_size` row."""
+    from vqvdb_tpu_torch.bench_dp import bench_mesh_size
+
+    mesh = make_mesh(device=dev)
+    row = bench_mesh_size(mesh.size, sz.batch, sz.dp_leaves,
+                          "bfloat16" if on_card else "float32", dev, mesh)
+    out = {"mesh_devices": row["n_devices"],
+           "dp_e2e_decode_leaves_per_sec": row["e2e_decode_leaves_per_sec"]}
+    out.update((k, row[k]) for k in DP_KEYS[2:])
+    return out
 
 
 def _run(dev, on_card: bool, sz: Sizes, checks: List[Dict]) -> Dict:
@@ -481,6 +513,22 @@ def _run(dev, on_card: bool, sz: Sizes, checks: List[Dict]) -> Dict:
     }
 
 
-def main(device=None, **sizes) -> None:
+def main(device=None, data_parallel: bool = False, **sizes) -> None:
     """Run the bench on `device` (default cuda) and print its JSON line."""
-    print(json.dumps(run(device, **sizes)))
+    print(json.dumps(run(device, data_parallel=data_parallel, **sizes)))
+
+
+def _cli(argv=None) -> None:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="The decode-throughput benchmark.")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="add the mesh codec's end-to-end rate and the host-stage "
+                         "cost model (bench_dp.py)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    args = ap.parse_args(argv)
+    main(args.device, data_parallel=args.data_parallel)
+
+
+if __name__ == "__main__":
+    _cli()

@@ -335,7 +335,6 @@ class VQCodec:
         per = self.ccfg.batch_size if mesh is None else mesh.shard_rows(self.ccfg.batch_size)
         first = 0 if mesh is None else mesh.first_shard
         every = mesh is not None and mesh.multiprocess
-        cuda = self.device.type == "cuda"
         pending: collections.deque = collections.deque()
         dispatched = 0
         for chunk, tag in batches:
@@ -365,16 +364,24 @@ class VQCodec:
                 for j, slot, _, _ in live:
                     with (mesh.stream(j) if mesh is not None else contextlib.nullcontext()):
                         dev = slot.device
-                        results = self._steps(kind, slot.inp.to(dev, non_blocking=True))
-                        for out, res in zip(slot.outs, results):
-                            out.copy_(res, non_blocking=cuda)
-                        if cuda:
-                            slot.done.record()
+                        self._read_back(slot, self._steps(
+                            kind, slot.inp.to(dev, non_blocking=True)))
             pending.append((stage, live, tag, n))
             if len(pending) >= PIPELINE_DEPTH:
                 yield self._collect(pending.popleft())
         while pending:
             yield self._collect(pending.popleft())
+
+    @staticmethod
+    def _read_back(slot: _Slot, results: Sequence[torch.Tensor]) -> None:
+        """Enqueue the copies of one device's step results into its slot's
+        host buffers (from the card: asynchronous, into pinned memory, the
+        slot's event recorded after them); `_collect` takes them."""
+        cuda = slot.done is not None
+        for out, res in zip(slot.outs, results):
+            out.copy_(res, non_blocking=cuda)
+        if cuda:
+            slot.done.record()
 
     @staticmethod
     def _collect(item) -> Tuple[List[np.ndarray], object, int]:
