@@ -179,7 +179,26 @@ Phases, in this order; any failure raises and the script exits non-zero:
      (in the compress) and dequantize (in the timed pass) launched once per
      shard step: 49 / 98 / 196 / 391 on meshes of 1 / 2 / 4 / 8. Logs
      `[dp] <mesh>: {...}` per row and `[dp] card: <nvidia-smi>`.
-Phases 3 and 15-20 log their seconds (`[phaseN]`).
+ 21. the Houdini SOPs' cooks (`hdk/SOP_VQVDB.cpp`): the launcher pip
+     writes for pyproject.toml's `vqvdb-torch` entry, driven by the
+     plugin's own encode and decode command lines (`integrations/hdk.py`,
+     run as popen runs them, no --device) on blosc half-float bridge .vdb
+     files of the --leaves leaves in a directory whose name holds a space
+     and a `'`: the encoder's defaults (grid density, batch 4,096, residual
+     Off on the field, Int8 and Half on its first 17,161 leaves) each with a
+     decoder cook of its file, batch 16,384 and batch 1 (first 256 leaves),
+     the reference arch, an input that does not exist and no --model, and a
+     first and second cook on a fresh build cache (VQVDB_COMPILE_CACHE).
+     Every cook's file (decoded .vdb but for its UUID) must equal its
+     in-process twin's (the same argv through cli.main on this card, the
+     counters around it: one score-argmin and one dequantize launch per
+     encode and decode batch, the fused block on the reference arch), batch
+     1, 4,096 and 16,384 must give equal indices and decoded bits, the v3
+     decode > 30 dB, the int8 bound held, the error cooks exit 1 and 2 with
+     their cause in the output. Logs `[hdk] <cook>: {...}` (wall, twin and
+     fixed seconds), `[hdk] anatomy ...` (the stages of a fresh process's
+     cook) and `[hdk] cooks {...}` beside `[hdk] card: <nvidia-smi>`.
+Phases 3 and 15-21 log their seconds (`[phaseN]`).
 Then one JSON line of kernel numbers, the nvidia-smi line, and last the
 result line {"ok": true, "device": {...}}. Phase 2 also counts the
 tensor-core instructions in each library's SASS (cuobjdump) and fails if an
@@ -2915,6 +2934,369 @@ def dp_phase():
     return rows, launches
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the Houdini SOPs' cooks through the installed executable
+# ---------------------------------------------------------------------------
+
+HDK_ENTRY = "vqvdb-torch"  # pyproject.toml's [project.scripts] entry of the port
+HDK_TIER_LEAVES = 17161  # the v6 cooks' bridge: the field's first leaves
+HDK_ONE_LEAVES = 256  # the batch-1 cooks' bridge
+HDK_TOGETHER = 6  # cooks at once beyond the SOP defaults' (what is timed alone)
+HDK_ERRORS = {"missing_input": (1, "No such file or directory"),
+              "missing_model": (2, "the following arguments are required: --model")}
+
+
+# Where a cook's fixed cost goes: the stages a fresh process goes through
+# for an encoder cook, in order, each timed on the host's clock (wall clock
+# since the epoch, so the parent can time the interpreter's start and exit).
+HDK_ANATOMY = r"""
+import json, sys, time
+from pathlib import Path
+marks = [("start", time.time())]
+def mark(name):
+    marks.append((name, time.time()))
+import torch
+mark("import_torch")
+from vqvdb_tpu_torch import api, cli
+from vqvdb_tpu_torch.core.artifact import load_model
+from vqvdb_tpu_torch.core.config import CodecConfig
+from vqvdb_tpu_torch.ops import build
+from vqvdb_tpu_torch.runtime.codec import VQCodec
+from vqvdb_tpu_torch.utils.compile_cache import enable_persistent_cache
+mark("import_port")
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+mark("cuda_context")
+for dtype in (torch.float32, torch.bfloat16):
+    a = torch.ones(8, 8, device="cuda", dtype=dtype)
+    w = torch.ones(8, 8, 3, 3, 3, device="cuda", dtype=dtype)
+    (a @ a).sum().item()
+    torch.nn.functional.conv3d(torch.ones(1, 8, 4, 4, 4, device="cuda", dtype=dtype), w,
+                               padding=1).sum().item()
+mark("first_gemm_and_conv")
+enable_persistent_cache()
+for name in build.SOURCES:
+    build.library(name)
+mark("kernel_libraries")
+tree, cfg = load_model(sys.argv[2])
+mark("load_model")
+codec = VQCodec(tree, cfg, CodecConfig(batch_size=4096), device="cuda")
+torch.cuda.synchronize()
+mark("codec")
+grids = cli._load_grids(Path(sys.argv[1]), "density")
+mark("read_bridge")
+api.encode(grids, codec, sys.argv[3])
+torch.cuda.synchronize()
+mark("first_encode")
+api.encode(grids, codec, sys.argv[3])
+torch.cuda.synchronize()
+mark("second_encode")
+print(json.dumps(marks))
+"""
+
+
+def cook_anatomy(bridge: Path, model: Path, out: Path, env: dict) -> dict:
+    """Seconds of each stage of a fresh process's encoder cook
+    (HDK_ANATOMY): the interpreter's start, the imports, the CUDA context,
+    a first small GEMM and conv in f32 and bf16 (cuBLAS's and cuDNN's first
+    use in the process), the kernel libraries, the `.vqmodel` read, the
+    codec's construction on the card (weights, folds), the bridge's read,
+    the first encode and a second one on the same codec, and the exit."""
+    t_launch = time.time()
+    proc = subprocess.run([sys.executable, "-c", HDK_ANATOMY, str(bridge), str(model),
+                           str(out)], capture_output=True, text=True, env=env, timeout=900)
+    t_exit = time.time()
+    if proc.returncode != 0:
+        raise AssertionError(f"hdk anatomy: exit {proc.returncode}:\n{proc.stderr[-4000:]}")
+    marks = json.loads(proc.stdout.strip().splitlines()[-1])
+    stages = {"interpreter_start": marks[0][1] - t_launch}
+    stages.update({name: t - prev for (_, prev), (name, t) in zip(marks, marks[1:])})
+    stages["exit"] = t_exit - marks[-1][1]
+    stages["wall"] = t_exit - t_launch
+    return stages
+
+
+class _Cooks:
+    """SOP lines run as the plugin's popen runs them, each beside its twin:
+    the same argv through `_cli` in this process, writing beside the cook's
+    output (`<stem>.twin<suffix>`) and reading the twin of a cook's output
+    where the line reads one, with the launch counters reset just before
+    and read just after. Keeps each cook's wall seconds, its twin's and
+    their difference (the cook's fixed cost)."""
+
+    def __init__(self, cmd: Path, env: dict):
+        self.cmd, self.env, self.rows, self.twin_of = cmd, env, {}, {}
+
+    def child(self, line, env=None):
+        """(exit status, combined output, wall seconds) of one cook."""
+        from vqvdb_tpu_torch.integrations import hdk
+
+        t0 = time.perf_counter()
+        status, output = hdk.run_line(line, env=env or self.env, timeout=900)
+        return status, output, time.perf_counter() - t0
+
+    def twin(self, label, line, want):
+        """(the cook's output, the twin's, the twin's seconds, its launches)."""
+        import shlex
+
+        import torch
+
+        argv = shlex.split(line)
+        if argv[0] != str(self.cmd):
+            raise AssertionError(f"hdk {label}: the line runs {argv[0]}, not {self.cmd}")
+        out = Path(argv[3])
+        twin = self.twin_of[out] = out.with_name(f"{out.stem}.twin{out.suffix}")
+        argv[2] = str(self.twin_of.get(Path(argv[2]), argv[2]))
+        argv[3] = str(twin)
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, _ = _cli(argv[1:])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = read_launches()
+        if rc != 0:
+            raise AssertionError(f"hdk {label}: the in-process twin exited {rc}")
+        expect_launches(f"hdk {label} twin", launches, **want)
+        return out, twin, seconds, launches
+
+    def _row(self, label, status, output, wall, twin, together):
+        if status != 0:
+            raise AssertionError(f"hdk {label}: the cook exited {status}:\n{output[-4000:]}")
+        out, twin_path, twin_s, launches = twin
+        self.rows[label] = {"wall_s": wall, "twin_s": twin_s, "fixed_s": wall - twin_s,
+                            "launches": launches, "cooks_at_once": together}
+        log(f"[hdk] {label}: {json.dumps(self.rows[label])}")
+        return out, twin_path
+
+    def cook(self, label, line, env=None, **want):
+        """One cook alone, then its twin: (the cook's output, the twin's)."""
+        status, output, wall = self.child(line, env)
+        return self._row(label, status, output, wall, self.twin(label, line, want), 1)
+
+    def together(self, jobs, workers: int):
+        """Jobs (each a list of (label, line, want) run in order) `workers`
+        at a time, the twins meanwhile in this process; a want of None marks
+        a cook expected to fail, which has no twin. Returns {label: (status,
+        output, wall)} of those."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        with ThreadPoolExecutor(workers) as pool:
+            futures = [pool.submit(lambda job: [self.child(line) for _, line, _ in job], job)
+                       for job in jobs]
+            twins = {label: self.twin(label, line, want) for job in jobs
+                     for label, line, want in job if want is not None}
+            results = [f.result() for f in futures]
+        failed = {}
+        for job, res in zip(jobs, results):
+            for (label, _, want), (status, output, wall) in zip(job, res):
+                if want is None:
+                    failed[label] = (status, output, wall)
+                else:
+                    self._row(label, status, output, wall, twins[label], workers)
+        return failed
+
+
+def _file_rows(path):
+    """(origins, indices) of a file's one grid, in lexicographic origin order."""
+    import numpy as np
+
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+
+    with VqvdbReader(path) as r:
+        _, idx, org = r.read_grid()
+    order = np.lexsort(org.T[::-1])
+    return org[order], idx[order]
+
+
+def _rows_at(origins, idx, want_origins):
+    """The rows of `idx` (origins sorted) at `want_origins`; raises if any is missing."""
+    import numpy as np
+
+    at = np.searchsorted(origins.view("i4,i4,i4").ravel(),
+                         want_origins.view("i4,i4,i4").ravel())
+    at = np.minimum(at, len(origins) - 1)
+    if not np.array_equal(origins[at], want_origins):
+        raise AssertionError("hdk: leaves of the batch-1 bridge missing from the full field")
+    return idx[at]
+
+
+def hdk_phase(codec, grid, workdir: Path, smi: str):
+    """Phase 21: the HDK SOPs' cooks (`hdk/SOP_VQVDB.cpp`) through the
+    launcher pip generates for `vqvdb-torch`, on blosc-compressed half-float
+    bridge `.vdb` files (what Houdini writes) in a directory whose name holds
+    a space and a `'`: the encoder's defaults (grid density, batch 4,096,
+    residual Off on the field, Int8 and Half on its first HDK_TIER_LEAVES
+    leaves) each with a decoder cook of its file; batch 16,384 on the field
+    and batch 1 on its first HDK_ONE_LEAVES leaves; the reference arch; an
+    input that does not exist and no --model; then a cook on a fresh build
+    cache (VQVDB_COMPILE_CACHE) and a second one on it, and the stages of a
+    fresh process's cook (`cook_anatomy`). The defaults' two v3 cooks and the
+    fresh-cache cooks run alone, each then its twin, and give what a cook
+    costs; the others run HDK_TOGETHER at a time with their twins meanwhile.
+    Fails unless every cook exits 0 with the bytes of its in-process twin (a
+    `.vdb` but for its UUID), each twin launches its kernels once a batch,
+    batch 1, 4,096 and 16,384 give equal indices and bit-equal decoded
+    leaves, the v3 decode is above MIN_PSNR_DB, the v6-int8 file keeps its
+    bound, the error cooks exit 1 and 2 with their cause in the combined
+    output, and the fresh cache holds every kernel library after the first
+    cook. Returns (rows, {kernel: the twins' launches})."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.format.verify import verify_roundtrip
+    from vqvdb_tpu_torch.integrations import hdk
+    from vqvdb_tpu_torch.ops import build
+    from vqvdb_tpu_torch.vdb.grid import psnr
+    from vqvdb_tpu_torch.vdb.openvdb_io import (COMPRESS_BLOSC, read_vdb_leafgrids,
+                                                write_vdb_leafgrids)
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()  # the cooks' processes share the card with this one
+    root = workdir / "SOP cooks 'hip' dir"
+    root.mkdir()
+    cmd = hdk.write_launcher(HDK_ENTRY, root / "bin")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(REPO), os.environ.get("PYTHONPATH")])))
+    models = {}
+    for name in ("scalar", "scalar_reference"):
+        models[name] = root / f"{name} model.vqmodel"
+        shutil.copy(REPO / "models" / f"{name}.vqmodel", models[name])
+    full, tiers, one = grid.num_leaves, HDK_TIER_LEAVES, HDK_ONE_LEAVES
+    bridges, setup = {}, {}
+    for label, n in (("full", full), ("tiers", tiers), ("one", one)):
+        bridges[label] = root / f"bridge {label}.vdb"
+        t1 = time.perf_counter()
+        write_vdb_leafgrids(bridges[label], [grid_subset(grid, n)],
+                            compression=COMPRESS_BLOSC, half=True)
+        setup[f"{label}_write_s"] = time.perf_counter() - t1
+    setup["full_bytes"] = bridges["full"].stat().st_size
+    log(f"[hdk] bridges {json.dumps(setup)}")
+
+    def steps(n, batch=4096):
+        return -(-n // batch)
+
+    c = _Cooks(cmd, env)
+    scalar, ref = models["scalar"], models["scalar_reference"]
+    files = {k: root / f"{k}.vqvdb" for k in ("v3", "v6_int8", "v6_half", "b16384", "b1",
+                                               "reference")}
+    decoded = {k: root / f"{k} out.vdb" for k in files}
+    # (a) the encoder SOP's defaults on the field and the decoder SOP on its
+    # file, each alone: what a cook costs
+    c.cook("encode_v3", hdk.encode_line(cmd, bridges["full"], files["v3"], model=scalar),
+           score_argmin=steps(full))
+    c.cook("decode_v3", hdk.decode_line(cmd, files["v3"], decoded["v3"], model=scalar),
+           dequantize=steps(full))
+    # the other cooks HDK_TOGETHER at a time, their twins meanwhile: (a) Int8
+    # and Half on the field's first leaves, (b) the batch parameter's two
+    # ends, (c) the reference arch, (d) what the node shows when a cook fails
+    jobs = []
+    for residual, name in ((1, "int8"), (2, "half")):
+        k = f"v6_{name}"
+        jobs.append([(f"encode_{k}", hdk.encode_line(cmd, bridges["tiers"], files[k],
+                                                     model=scalar, residual=residual),
+                      dict(score_argmin=steps(tiers), dequantize=steps(tiers))),
+                     (f"decode_{k}", hdk.decode_line(cmd, files[k], decoded[k], model=scalar),
+                      dict(dequantize=steps(tiers)))])
+    for k, bridge, n, batch in (("b16384", "full", full, 16384), ("b1", "one", one, 1)):
+        jobs.append([(f"encode_v3_{k}", hdk.encode_line(cmd, bridges[bridge], files[k], batch,
+                                                        model=scalar),
+                      dict(score_argmin=steps(n, batch))),
+                     (f"decode_v3_{k}", hdk.decode_line(cmd, files[k], decoded[k], batch,
+                                                        model=scalar),
+                      dict(dequantize=steps(n, batch)))])
+    jobs.append([("encode_reference", hdk.encode_line(cmd, bridges["full"], files["reference"],
+                                                      model=ref),
+                  dict(fused_rb=steps(full), score_argmin=steps(full))),
+                 ("decode_reference", hdk.decode_line(cmd, files["reference"],
+                                                      decoded["reference"], model=ref),
+                  dict(dequantize=steps(full)))])
+    jobs.append([("missing_input", hdk.encode_line(cmd, root / "no such 'input'.vdb",
+                                                   root / "x.vqvdb", model=scalar), None)])
+    jobs.append([("missing_model", hdk.encode_line(cmd, bridges["one"], root / "y.vqvdb"),
+                  None)])
+    failed = c.together(jobs, HDK_TOGETHER)
+    for k in files:
+        twin = c.twin_of[files[k]]
+        if files[k].read_bytes() != twin.read_bytes():
+            raise AssertionError(f"hdk {k}: the encoder cook's file differs from its twin's")
+        if hdk.bridge_bytes(decoded[k]) != hdk.bridge_bytes(c.twin_of[decoded[k]]):
+            raise AssertionError(f"hdk {k}: the decoder cook's .vdb differs from its twin's")
+    errors = {}
+    for label, (status, output, wall) in failed.items():
+        code, cause = HDK_ERRORS[label]
+        if status != code or cause not in output:
+            raise AssertionError(f"hdk {label}: exit {status}, output:\n{output[-4000:]}")
+        errors[label] = {"exit": status, "wall_s": wall, "message": output.strip()[-300:]}
+    log(f"[hdk] errors {json.dumps(errors)}")
+    # the decodes: the v3 file above the PSNR floor, the int8 bound held
+    (got,) = read_vdb_leafgrids(decoded["v3"])
+    go, gl = _by_origin(got)
+    src_o, src_l = _by_origin(grid)
+    if not np.array_equal(go, src_o):
+        raise AssertionError("hdk decode_v3: other origins than the bridge's")
+    checks = {"psnr_db_v3": psnr(gl, src_l.astype(np.float16).astype(np.float32))}
+    if not checks["psnr_db_v3"] > MIN_PSNR_DB:
+        raise AssertionError(f"hdk decode_v3: PSNR {checks['psnr_db_v3']:.2f} dB")
+    (tier_grid,) = read_vdb_leafgrids(bridges["tiers"])
+    report = verify_roundtrip(files["v6_int8"], codec, [tier_grid])
+    row = report["grids"][0]
+    if not (report["ok"] and row["bound_ok"]):
+        raise AssertionError(f"hdk v6 int8 verify_roundtrip: {json.dumps(report)}")
+    checks["v6_int8"] = {k: row[k] for k in ("matched_leaves", "max_abs_err",
+                                             "residual_bound", "bound_ok")}
+    # batch 1, 4,096 and 16,384: the same indices and decoded bits
+    v3_o, v3_i = _file_rows(files["v3"])
+    o16, i16 = _file_rows(files["b16384"])
+    o1, i1 = _file_rows(files["b1"])
+    if not (np.array_equal(o16, v3_o) and np.array_equal(i16, v3_i)):
+        raise AssertionError(f"hdk: batch 16,384 gives other indices than batch 4,096 in "
+                             f"{int((i16 != v3_i).sum())} latent positions")
+    want = _rows_at(v3_o, v3_i, o1)
+    if not np.array_equal(i1, want):
+        raise AssertionError(f"hdk: batch 1 gives other indices than batch 4,096 in "
+                             f"{int((i1 != want).sum())} of {i1.size} latent positions")
+    if hdk.bridge_bytes(decoded["b16384"]) != hdk.bridge_bytes(decoded["v3"]):
+        raise AssertionError("hdk: batch 16,384 decodes other leaves than batch 4,096")
+    (got1,) = read_vdb_leafgrids(decoded["b1"])
+    o1, l1 = _by_origin(got1)
+    if l1.tobytes() != _rows_at(go, gl, o1).tobytes():
+        raise AssertionError("hdk: batch 1 decodes other leaves than batch 4,096")
+    checks["batch_1_4096_16384"] = {"indices_equal": True, "leaves_bit_equal": True}
+    # a new install: the first cook builds the kernels into an empty cache
+    cache = workdir / "fresh build cache"
+    fresh = dict(env, VQVDB_COMPILE_CACHE=str(cache))
+    for label in ("fresh_cache_first", "fresh_cache_second"):
+        out, twin = c.cook(label, hdk.encode_line(cmd, bridges["one"], root / f"{label}.vqvdb",
+                                                  model=scalar),
+                           env=fresh, score_argmin=steps(one))
+        if out.read_bytes() != twin.read_bytes():
+            raise AssertionError(f"hdk {label}: the cook's file differs from its twin's")
+        if label.endswith("first"):
+            built = sorted(p.name for p in cache.glob("*.so"))
+            if len(built) != len(build.SOURCES):
+                raise AssertionError(f"hdk: the first cook on a fresh cache built {built}")
+    checks["fresh_cache_built"] = built
+    anatomy = cook_anatomy(bridges["tiers"], scalar, root / "anatomy.vqvdb", env)
+    log(f"[hdk] anatomy of an encoder cook ({tiers} leaves): {json.dumps(anatomy)}")
+    alone = {k: r["fixed_s"] for k, r in c.rows.items()
+             if r["cooks_at_once"] == 1 and k != "fresh_cache_first"}
+    summary = {"fixed_s_alone": alone,
+               "fresh_cache_first_s": c.rows["fresh_cache_first"]["wall_s"],
+               "fresh_cache_second_s": c.rows["fresh_cache_second"]["wall_s"],
+               "anatomy": anatomy, "checks": checks}
+    log(f"[hdk] card: {smi}")
+    log(f"[hdk] cooks {json.dumps(summary)}")
+    log(f"[phase21] {time.perf_counter() - t0:.1f} s")
+    launches = {"score_argmin": c.rows["encode_v3"]["launches"]["score_argmin"],
+                "dequantize": c.rows["decode_v3"]["launches"]["dequantize"],
+                "fused_rb": c.rows["encode_reference"]["launches"]["fused_rb"],
+                "score_argmin_width32": c.rows["encode_reference"]["launches"]["score_argmin"]}
+    return {"cooks": c.rows, "errors": errors, **summary}, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3068,6 +3450,8 @@ def main() -> int:
     _, bench_launches = bench_phase(smi, kind)
     log(f"[phase19] {time.perf_counter() - t0:.1f} s")
     _, dp_launches = dp_phase()
+    with tempfile.TemporaryDirectory() as tmp:
+        _, hdk_launches = hdk_phase(codec, grid, Path(tmp), smi)
 
     # Each row's count comes from the path that runs the kernel at the row's
     # shape and type, counters reset just before that path and read just after.
@@ -3113,8 +3497,14 @@ def main() -> int:
     # decode of its file, on every mesh.
     for name in ("score_argmin", "fused_rb", "dequantize"):
         launches[f"{name}_dp"] = dp_launches[name]
+    # Phase 21's in-process twins of the SOPs' cooks: the flagship's v3
+    # encode and decode at batch 4,096 and the reference arch's encode.
+    for name, count in hdk_launches.items():
+        launches[f"{name}_hdk"] = count
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        if row["name"] in hdk_launches:
+            row["hdk_launches"] = hdk_launches[row["name"]]
     log(f"[launches] {json.dumps(launches)}")
     for name, count in launches.items():
         if count < 1:

@@ -936,3 +936,103 @@ def test_card_bench_dp_one_card_mesh_of_two():
             if key.endswith(("_per_sec", "_per_batch")):
                 assert np.isfinite(v) and v > 0, (key, v)
     assert "host_gather_shards_ms_per_batch" in rows[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("residual", [0, 1])
+def test_card_sop_cooks_through_the_launcher(tmp_path, residual):
+    """The launcher pip generates for `vqvdb-torch`, on the HDK SOPs'
+    encode and decode lines (no `--device`: the card is the default) run
+    as popen runs them, on a blosc half-float bridge of 3,000 seeded leaves
+    in a directory whose name holds a space and a `'`: each cook exits 0
+    and writes the bytes the same argv writes through in-process main on
+    the card (the decoded `.vdb` but for its header's UUID), which launches
+    score-argmin once per encode batch and dequantize once per decode batch
+    (and once per encode batch with a residual)."""
+    import os
+    import shlex
+    from pathlib import Path
+
+    from vqvdb_tpu_torch.cli import main as cli
+    from vqvdb_tpu_torch.integrations import hdk
+    from vqvdb_tpu_torch.tools.roundtrip import field
+    from vqvdb_tpu_torch.vdb.openvdb_io import COMPRESS_BLOSC, write_vdb_leafgrids
+
+    _card()
+    repo = _MODELS.parent
+    root = tmp_path / "SOP cooks 'hip'"
+    root.mkdir()
+    bridge = root / "bridge in.vdb"
+    grid = field(3, 3000)
+    write_vdb_leafgrids(bridge, [grid], compression=COMPRESS_BLOSC, half=True)
+    cmd = hdk.write_launcher("vqvdb-torch", root / "bin")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(repo), os.environ.get("PYTHONPATH")])))
+    model, bs = _MODELS / "scalar.vqmodel", 1024
+    steps = -(-grid.num_leaves // bs)
+    lines = [hdk.encode_line(cmd, bridge, root / "out.vqvdb", bs, model=model,
+                             residual=residual),
+             hdk.decode_line(cmd, root / "out.vqvdb", root / "out.vdb", bs, model=model)]
+    wants = [{"score_argmin": steps, "dequantize": steps if residual else 0},
+             {"score_argmin": 0, "dequantize": steps}]
+    for line, want in zip(lines, wants):
+        status, output = hdk.run_line(line, env=env, timeout=900)
+        assert status == 0, output
+        argv = shlex.split(line)
+        assert argv[0] == str(cmd)
+        out = Path(argv[3])
+        twin = out.with_name("twin" + out.suffix)
+        argv[3] = str(twin)
+        before = {k: getattr(q, f"fused_{k}").launches for k in want}
+        assert cli(argv[1:]) == 0
+        torch.cuda.synchronize()
+        assert {k: getattr(q, f"fused_{k}").launches - before[k] for k in want} == want
+        if out.suffix == ".vdb":
+            assert hdk.bridge_bytes(twin) == hdk.bridge_bytes(out)
+        else:
+            assert twin.read_bytes() == out.read_bytes()
+
+
+@pytest.mark.cuda
+def test_card_sop_cook_on_an_unwritable_build_cache_shows_the_oserror(tmp_path):
+    """A cook whose build cache cannot be made (VQVDB_COMPILE_CACHE under a
+    regular file, as a read-only install left at its default would be)
+    exits 1 with the OSError's message in the combined output, which the
+    SOP puts on the node; nothing falls back."""
+    import os
+
+    from vqvdb_tpu_torch.integrations import hdk
+    from vqvdb_tpu_torch.tools.roundtrip import field
+    from vqvdb_tpu_torch.vdb.openvdb_io import write_vdb_leafgrids
+
+    _card()
+    blocker = tmp_path / "a file"
+    blocker.write_text("")
+    bridge = tmp_path / "bridge.vdb"
+    write_vdb_leafgrids(bridge, [field(3, 64)])
+    cmd = hdk.write_launcher("vqvdb-torch", tmp_path / "bin")
+    env = dict(os.environ, VQVDB_COMPILE_CACHE=str(blocker / "cache"),
+               PYTHONPATH=os.pathsep.join(filter(None, [str(_MODELS.parent),
+                                                        os.environ.get("PYTHONPATH")])))
+    status, output = hdk.run_line(hdk.encode_line(cmd, bridge, tmp_path / "o.vqvdb",
+                                                  model=_MODELS / "scalar.vqmodel"),
+                                  env=env, timeout=300)
+    assert status == 1, output
+    assert "error: [Errno 20] Not a directory" in output and "Traceback" not in output
+
+
+@pytest.mark.cuda
+def test_card_stages_keep_a_rows_bits_down_to_one_leaf():
+    """`tools/batch_invariance.py` on the card at 256 leaves in blocks of
+    64 down to 1 leaf, odd sizes and their remainders included: every stage
+    of the flagship, the reference arch and scalar_rvq2 (GroupNorm and the
+    attention mean padded to MIN_REDUCE_ROWS rows, `models/blocks.py`) gives
+    a row the same bits as the whole batch, in bf16 and f32."""
+    from vqvdb_tpu_torch.tools import batch_invariance
+
+    _card()
+    out = batch_invariance.stages("cuda", n=256, sizes=(64, 16, 7, 4, 3, 2, 1))
+    moved = [f"{m}/{dtype}/{stage}/{n}" for m, by_dtype in out["stages"].items()
+             for dtype, by_stage in by_dtype.items() for stage, by_n in by_stage.items()
+             for n, equal in by_n.items() if not equal]
+    assert not moved, moved

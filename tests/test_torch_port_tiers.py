@@ -316,3 +316,32 @@ def test_residual_math_bit_equal(rng, mode, tol):
         residual.quantize_residual(err, "int4")
     with pytest.raises(ValueError):
         residual.quantize_residual(err, "f16", 1e-3)
+
+
+@pytest.mark.parametrize("k", [256, 4096])
+def test_write_single_grid_matches_jax(rng, tmp_path, k):
+    """write_single_grid: with u8 indices (K=256) the file is byte-identical
+    to the JAX package's and the port's reader reads it back; with u16
+    indices (K=4096) both refuse v3 with the same FormatError and leave the
+    same bytes behind."""
+    idx, org, _, _ = _payload(rng, 23, k, 1, None, None)
+    transform = np.diag([0.5, 0.5, 0.5, 1.0]).astype(np.float32)
+    ours, theirs = tmp_path / "ours.vqvdb", tmp_path / "theirs.vqvdb"
+    if k > 256:
+        with pytest.raises(FormatError) as e:
+            fmt.write_single_grid(ours, "density", idx, org, k)
+        with pytest.raises(JaxFormatError) as je:
+            jfmt.write_single_grid(theirs, "density", idx, org, k)
+        assert str(e.value) == str(je.value)
+        assert ours.read_bytes() == theirs.read_bytes()
+        return
+    fmt.write_single_grid(ours, "density", idx, org, k, transform)
+    jfmt.write_single_grid(theirs, "density", idx, org, k, transform)
+    assert ours.read_bytes() == theirs.read_bytes()
+    with fmt.VqvdbReader(ours) as r:
+        meta, got_idx, got_org = r.read_grid()
+        assert not r.has_next_grid()
+    assert (meta.name, meta.num_embeddings, meta.latent_shape) == ("density", k, (4, 4, 4))
+    np.testing.assert_array_equal(meta.transform, transform)
+    np.testing.assert_array_equal(got_idx, idx)
+    np.testing.assert_array_equal(got_org, org)

@@ -596,3 +596,27 @@ class VqvdbReader:
         if len(raw) != n:
             raise FormatError(f"Failed to read {what}.")
         return raw
+
+
+def write_single_grid(
+    path: Union[str, Path],
+    name: str,
+    indices: np.ndarray,
+    origins: np.ndarray,
+    num_embeddings: int,
+    transform: Optional[np.ndarray] = None,
+) -> None:
+    """One-shot write of a single grid to a v3 file (the JAX package's
+    convenience for tests and the CLI; K > 256 raises FormatError, as v3
+    holds one byte per index)."""
+    meta = GridMetadata(
+        name=name,
+        num_embeddings=num_embeddings,
+        latent_shape=tuple(indices.shape[1:]),
+        total_blocks=indices.shape[0],
+        transform=np.eye(4, dtype=np.float32) if transform is None else transform,
+    )
+    with VqvdbWriter(path) as w:
+        w.start_grid(meta)
+        w.write_batch(indices, origins)
+        w.end_grid()

@@ -168,6 +168,27 @@ def row_wise(fn, x: torch.Tensor) -> torch.Tensor:
     return in_row_blocks(fn, x) if torch.is_inference_mode_enabled() else fn(x)
 
 
+# Fewest rows a per-row reduction is computed on at inference, by device
+# type. On the card PyTorch's reductions split a row's sum by how many rows
+# share the call while there are few: a leaf's GroupNorm statistics and
+# attention mean took other bits in calls of one or two leaves than of four
+# to 4,096 (`tools/batch_invariance.py`), so a batch size of 1, or a file's
+# last batch of one or two leaves, moved a leaf's code. On the CPU no call
+# size moved them.
+MIN_REDUCE_ROWS = {"cuda": 64, "cpu": 1}
+
+
+def padded_rows(fn, x: torch.Tensor) -> torch.Tensor:
+    """fn(x) for a per-row reduction: at inference, with fewer rows than
+    MIN_REDUCE_ROWS (of x's device), computed on x padded with zero rows,
+    whose outputs are dropped; otherwise in one call."""
+    rows = MIN_REDUCE_ROWS[x.device.type]
+    n = x.shape[0]
+    if n >= rows or not torch.is_inference_mode_enabled():
+        return fn(x)
+    return fn(torch.cat([x, x.new_zeros((rows - n,) + x.shape[1:])]))[:n]
+
+
 def conv3d(params: Params, x: torch.Tensor, *, stride: int = 1,
            padding: int = 0) -> torch.Tensor:
     """3D convolution: NDHWC x OIDHW -> NDHWC (`row_wise`)."""
@@ -198,14 +219,19 @@ def same_padding(params: Params) -> int:
 
 def group_norm(params: Params, x: torch.Tensor, num_groups: int,
                eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over channels-last input; statistics in f32."""
-    b, d, h, w, c = x.shape
-    xf = x.to(torch.float32).reshape(b, d, h, w, num_groups, c // num_groups)
-    mean = xf.mean(dim=(1, 2, 3, 5), keepdim=True)
-    var = (xf - mean).square().mean(dim=(1, 2, 3, 5), keepdim=True)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, d, h, w, c)
-    y = xf * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)
-    return y.to(x.dtype)
+    """GroupNorm over channels-last input; statistics in f32
+    (`padded_rows`)."""
+
+    def norm(t):
+        b, d, h, w, c = t.shape
+        xf = t.to(torch.float32).reshape(b, d, h, w, num_groups, c // num_groups)
+        mean = xf.mean(dim=(1, 2, 3, 5), keepdim=True)
+        var = (xf - mean).square().mean(dim=(1, 2, 3, 5), keepdim=True)
+        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, d, h, w, c)
+        y = xf * params["scale"].to(torch.float32) + params["bias"].to(torch.float32)
+        return y.to(t.dtype)
+
+    return padded_rows(norm, x)
 
 
 def pixel_shuffle_3d(x: torch.Tensor, r: int = 2) -> torch.Tensor:
@@ -243,9 +269,15 @@ def row_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return row_wise(lambda t: t @ b, a)
 
 
+def channel_mean(x: torch.Tensor) -> torch.Tensor:
+    """Each leaf's per-channel mean over its voxels, (B, C) in f32
+    (`padded_rows`)."""
+    return padded_rows(lambda t: t.to(torch.float32).mean(dim=(1, 2, 3)), x)
+
+
 def channel_attention(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Squeeze-excite channel gating; bias-free fc1/fc2, mean in f32."""
-    y = x.to(torch.float32).mean(dim=(1, 2, 3))  # (B, C)
+    y = channel_mean(x)
     y = torch.relu(row_blocks(y, params["fc1"]["w"].to(torch.float32)))
     y = torch.sigmoid(row_blocks(y, params["fc2"]["w"].to(torch.float32)))
     return x * y[:, None, None, None, :].to(x.dtype)

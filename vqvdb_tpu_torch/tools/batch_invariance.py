@@ -91,7 +91,7 @@ def _flagship(codec, x, sizes):
         packed = space_to_channel(x.to(codec.dtype), 2)
         h = torch.relu(blocks.group_norm(enc["stem_gn"], blocks.conv3d(
             enc["stem_conv"], packed, padding=1), 8))
-        y = h.to(torch.float32).mean(dim=(1, 2, 3))
+        y = blocks.channel_mean(h)
         w = enc["attn"]["fc1"]["w"].to(torch.float32)
         feats = codec._features(x.to(codec.dtype))
         idx = codec._encode_step(x)
@@ -105,8 +105,7 @@ def _flagship(codec, x, sizes):
         lambda t: blocks.conv3d(enc["stem_conv"], t, padding=1), packed, sizes)
     out["group_norm"] = _invariant(lambda t: blocks.group_norm(enc["stem_gn"], t, 8), h, sizes)
     out["residual_block"] = _invariant(lambda t: blocks.residual_block(enc["rb"], t), h, sizes)
-    out["attention_mean"] = _invariant(lambda t: t.to(torch.float32).mean(dim=(1, 2, 3)),
-                                       h, sizes)
+    out["attention_mean"] = _invariant(blocks.channel_mean, h, sizes)
     out["attention_fc"] = _invariant(lambda t: blocks.row_blocks(t, w), y, sizes)
     out["channel_attention"] = _invariant(
         lambda t: blocks.channel_attention(enc["attn"], t), h, sizes)
