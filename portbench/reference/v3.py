@@ -1,0 +1,65 @@
+"""Frozen v3 `.vqvdb` writer and reader (one or more grids, u8 indices).
+
+Little-endian, packed: a 12-byte header (b"VQVDB", u8 version 3, u8 grid
+count, u32 codebook size, u8 latent rank), then per grid a u32 name length
+and the name, the 4x4 f32 transform, u16 latent shape, u32 leaf count, and
+one 12 + prod(latent shape) byte chunk per leaf: i32[3] origin, u8 indices.
+"""
+
+from __future__ import annotations
+
+import struct
+from pathlib import Path
+from typing import List, Tuple, Union
+
+import numpy as np
+
+HEADER = struct.Struct("<5sBBIB")
+
+
+def _chunk(num_indices: int) -> np.dtype:
+    return np.dtype([("origin", "<i4", (3,)), ("indices", "u1", (num_indices,))])
+
+
+def write(path: Union[str, Path], name: str, origins: np.ndarray, indices: np.ndarray,
+          num_embeddings: int) -> None:
+    """One grid: origins int32 [N, 3], indices uint8 [N, *latent]."""
+    if num_embeddings > 256:
+        raise ValueError("v3 holds one byte per index")
+    n, latent = indices.shape[0], indices.shape[1:]
+    chunks = np.empty(n, _chunk(int(np.prod(latent))))
+    chunks["origin"] = origins
+    chunks["indices"] = indices.reshape(n, -1)
+    name_b = name.encode()
+    with open(path, "wb") as f:
+        f.write(HEADER.pack(b"VQVDB", 3, 1, num_embeddings, len(latent)))
+        f.write(struct.pack("<I", len(name_b)) + name_b)
+        f.write(np.eye(4, dtype="<f4").tobytes())
+        f.write(np.asarray(latent, "<u2").tobytes())
+        f.write(struct.pack("<I", n))
+        f.write(chunks.tobytes())
+
+
+def read(path: Union[str, Path]) -> Tuple[int, List[Tuple[str, np.ndarray, np.ndarray]]]:
+    """(codebook size, [(name, origins int32 [N, 3], indices uint8 [N, *latent])])."""
+    raw = Path(path).read_bytes()
+    magic, version, grids, k, rank = HEADER.unpack_from(raw, 0)
+    if magic != b"VQVDB" or version != 3:
+        raise ValueError(f"{path} is not a v3 .vqvdb file")
+    pos, out = HEADER.size, []
+    for _ in range(grids):
+        (n,) = struct.unpack_from("<I", raw, pos)
+        name = raw[pos + 4:pos + 4 + n].decode()
+        pos += 4 + n + 64
+        latent = tuple(int(v) for v in np.frombuffer(raw, "<u2", rank, pos))
+        pos += 2 * rank
+        (leaves,) = struct.unpack_from("<I", raw, pos)
+        pos += 4
+        dt = _chunk(int(np.prod(latent)))
+        chunks = np.frombuffer(raw, dt, leaves, pos)
+        pos += leaves * dt.itemsize
+        out.append((name, chunks["origin"].copy(),
+                    chunks["indices"].reshape((leaves,) + latent).copy()))
+    if pos != len(raw):
+        raise ValueError(f"{len(raw) - pos} trailing bytes in {path}")
+    return k, out
