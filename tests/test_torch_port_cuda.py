@@ -1036,3 +1036,27 @@ def test_card_stages_keep_a_rows_bits_down_to_one_leaf():
              for dtype, by_stage in by_dtype.items() for stage, by_n in by_stage.items()
              for n, equal in by_n.items() if not equal]
     assert not moved, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,direction", [("scalar", "compress"), ("scalar", "decompress"),
+                                             ("vec3", "decompress")])
+def test_card_every_event_of_a_call_is_near_its_program_range(tmp_path, model, direction):
+    """The card's twin of `test_torch_port_spans.py`'s nesting guard: the
+    cells' codec (batch 4,096, bf16) traced with the card's activity, which
+    adds a runtime event per launch; every torch op and runtime call of a
+    compress or decompress of 9,000 leaves lies within LOOKBACK events of the
+    opening of the innermost program range holding it, so the benchmark's
+    trace reader finds that range."""
+    from portbench.tracing import LOOKBACK
+    from test_torch_port_spans import frame, traced_call
+
+    from vqvdb_tpu_torch import api
+
+    _card()
+    codec = api.make_codec(_MODELS / f"{model}.vqmodel", device="cuda")
+    acts = (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+    names, worst = traced_call(codec, direction, frame(9000, codec.mcfg.in_channels),
+                               tmp_path / "f.vqvdb", acts)
+    assert "device/dispatch" in names and "rb/conv2" in names
+    assert max(worst.values()) < LOOKBACK, worst

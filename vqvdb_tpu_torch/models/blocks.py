@@ -25,6 +25,8 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from vqvdb_tpu_torch.utils.profiler import span
+
 Params = Dict[str, torch.Tensor]
 
 
@@ -256,12 +258,15 @@ def _rounded(value: float, dtype: torch.dtype) -> float:
 def residual_block(params: Params, x: torch.Tensor, *, groups: int = 8,
                    scale: float = 0.1) -> torch.Tensor:
     """Pre-activation GN residual block: x + scale * conv2(relu(gn2(
-    conv1(relu(gn1 x))))). SAME padding comes from each conv's kernel."""
-    h = torch.relu(group_norm(params["gn1"], x, groups))
-    h = conv3d(params["conv1"], h, padding=same_padding(params["conv1"]))
-    h = torch.relu(group_norm(params["gn2"], h, groups))
-    h = conv3d(params["conv2"], h, padding=same_padding(params["conv2"]))
-    return x + h * _rounded(scale, x.dtype)
+    conv1(relu(gn1 x))))). SAME padding comes from each conv's kernel. Each
+    half is a trace range (`rb/conv1`, `rb/conv2`)."""
+    with span("rb/conv1"):
+        h = torch.relu(group_norm(params["gn1"], x, groups))
+        h = conv3d(params["conv1"], h, padding=same_padding(params["conv1"]))
+    with span("rb/conv2"):
+        h = torch.relu(group_norm(params["gn2"], h, groups))
+        h = conv3d(params["conv2"], h, padding=same_padding(params["conv2"]))
+        return x + h * _rounded(scale, x.dtype)
 
 
 def row_blocks(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -55,6 +55,7 @@ from vqvdb_tpu_torch.models.quantizer import (
 from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
 from vqvdb_tpu_torch.ops.packed import space_to_channel
 from vqvdb_tpu_torch.utils.errors import ConfigError
+from vqvdb_tpu_torch.utils.profiler import span
 
 Params = Dict[str, Any]
 
@@ -82,42 +83,46 @@ def _encoder_features_packed(params: Params, x: torch.Tensor) -> torch.Tensor:
     """Packed-encoder features: (B,8,8,8,C) -> (B,4,4,4,W). packed_stem runs
     its 8^3 stage (k3 conv C -> W/8, GroupNorm of W/16 groups, relu) first,
     so the pack lands on W channels and the stem conv is k1."""
-    h = x
-    if "pre_conv" in params:
-        h = blocks.conv3d(params["pre_conv"], h, padding=1)
-        h = torch.relu(blocks.group_norm(params["pre_gn"], h,
-                                         params["pre_gn"]["scale"].shape[0] // 2))
-    h = space_to_channel(h, 2)
-    h = blocks.conv3d(params["stem_conv"], h,
-                      padding=blocks.same_padding(params["stem_conv"]))
-    h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
-    h = blocks.residual_block(params["rb"], h)
-    return blocks.channel_attention(params["attn"], h)
+    with span("encode/stem"):
+        h = x
+        if "pre_conv" in params:
+            h = blocks.conv3d(params["pre_conv"], h, padding=1)
+            h = torch.relu(blocks.group_norm(params["pre_gn"], h,
+                                             params["pre_gn"]["scale"].shape[0] // 2))
+        h = space_to_channel(h, 2)
+        h = blocks.conv3d(params["stem_conv"], h,
+                          padding=blocks.same_padding(params["stem_conv"]))
+        h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
+    with span("encode/rb"):
+        h = blocks.residual_block(params["rb"], h)
+    with span("encode/attention"):
+        return blocks.channel_attention(params["attn"], h)
 
 
 def _reference_pre(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    fuse_rb16: bool = False) -> torch.Tensor:
     """The reference encoders' stage on the 8^3 grid: conv, GroupNorm (4
     groups scalar, 8 vec3), relu, residual block."""
-    h = blocks.conv3d(params["pre_conv"], x, padding=1)
-    pre_groups = 4 if cfg.variant == "scalar" else 8
-    h = torch.relu(blocks.group_norm(params["pre_gn"], h, pre_groups))
-    if fuse_rb16:
-        # The kernel reads a dense NDHWC buffer; a no-op when GroupNorm
-        # already handed one over.
-        return residual_block_fused(params["pre_rb"], h.contiguous())
-    return blocks.residual_block(params["pre_rb"], h)
+    with span("encode/pre_conv"):
+        h = blocks.conv3d(params["pre_conv"], x, padding=1)
+        pre_groups = 4 if cfg.variant == "scalar" else 8
+        h = torch.relu(blocks.group_norm(params["pre_gn"], h, pre_groups))
+    with span("encode/pre_rb"):
+        if fuse_rb16:
+            # The kernel reads a dense NDHWC buffer; a no-op when GroupNorm
+            # already handed one over.
+            return residual_block_fused(params["pre_rb"], h.contiguous())
+        return blocks.residual_block(params["pre_rb"], h)
 
 
 def _reference_post(params: Params, h: torch.Tensor,
                     cfg: ModelConfig) -> torch.Tensor:
     """The reference encoders' stage on the 4^3 grid, after the down conv."""
-    if cfg.variant == "scalar":
-        h = blocks.residual_block(params["rb"], h)
-    else:
-        h = blocks.residual_block(params["rb1"], h)
-        h = blocks.residual_block(params["rb2"], h)
-    return blocks.channel_attention(params["attn"], h)
+    for key in ("rb",) if cfg.variant == "scalar" else ("rb1", "rb2"):
+        with span(f"encode/{key}"):
+            h = blocks.residual_block(params[key], h)
+    with span("encode/attention"):
+        return blocks.channel_attention(params["attn"], h)
 
 
 def encoder_features(params: Params, x: torch.Tensor,
@@ -128,14 +133,17 @@ def encoder_features(params: Params, x: torch.Tensor,
         return _encoder_features_packed(params, x)
     h = _reference_pre(params, x, cfg)
     # k4 s2 (scalar) / k3 s2 (vec3): 8^3 -> 4^3
-    h = blocks.conv3d(params["down"], h, stride=2, padding=1)
+    with span("encode/down"):
+        h = blocks.conv3d(params["down"], h, stride=2, padding=1)
     return _reference_post(params, h, cfg)
 
 
 def encoder_apply(params: Params, x: torch.Tensor,
                   cfg: ModelConfig) -> torch.Tensor:
     """x (B,8,8,8,C) -> latents (B,4,4,4,D)."""
-    return blocks.conv3d(params["proj"], encoder_features(params, x, cfg))
+    h = encoder_features(params, x, cfg)
+    with span("encode/proj"):
+        return blocks.conv3d(params["proj"], h)
 
 
 def encoder_features_packed_down(params: Params, folded_down: Params,
@@ -148,25 +156,34 @@ def encoder_features_packed_down(params: Params, folded_down: Params,
     (ops/fused_rb.py)."""
     h = _reference_pre(params, x, cfg,
                        fuse_rb16=fuse_rb16 and cfg.variant == "scalar")
-    h = blocks.conv3d(folded_down, space_to_channel(h, 2), padding=1)
+    with span("encode/down"):
+        h = blocks.conv3d(folded_down, space_to_channel(h, 2), padding=1)
     return _reference_post(params, h, cfg)
 
 
 def decoder_pre_tail(params: Params, z: torch.Tensor,
                      cfg: ModelConfig) -> torch.Tensor:
     """Decoder up to (excluding) up_conv: (B,4,4,4,D) -> (B,4,4,4,64|128)."""
-    return _decoder_trunk(params, blocks.conv3d(params["stem_conv"], z, padding=1), cfg)
+    with span("decode/stem"):
+        h = blocks.conv3d(params["stem_conv"], z, padding=1)
+        h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
+    return _decoder_blocks(params, h, cfg)
 
 
 def _decoder_trunk(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The decoder after its stem conv, up to (excluding) up_conv."""
-    h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
-    if cfg.variant == "scalar":
-        h = blocks.residual_block(params["rb"], h)
-    else:
-        h = blocks.residual_block(params["rb1"], h)
-        h = blocks.residual_block(params["rb2"], h)
-    return blocks.channel_attention(params["attn"], h)
+    with span("decode/stem"):
+        h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
+    return _decoder_blocks(params, h, cfg)
+
+
+def _decoder_blocks(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The decoder's residual blocks and channel attention."""
+    for key in ("rb",) if cfg.variant == "scalar" else ("rb1", "rb2"):
+        with span(f"decode/{key}"):
+            h = blocks.residual_block(params[key], h)
+    with span("decode/attention"):
+        return blocks.channel_attention(params["attn"], h)
 
 
 def head_activation(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -179,10 +196,11 @@ def decoder_tail(params: Params, h: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """up_conv -> pixel shuffle -> final conv -> head activation:
     (B,4,4,4,64|128) -> (B,8,8,8,C) f32."""
-    h = blocks.conv3d(params["up_conv"], h, padding=1)
-    h = blocks.pixel_shuffle_3d(h, 2)
-    h = blocks.conv3d(params["final"], h, padding=1)
-    return head_activation(h, cfg)
+    with span("decode/tail"):
+        h = blocks.conv3d(params["up_conv"], h, padding=1)
+        h = blocks.pixel_shuffle_3d(h, 2)
+        h = blocks.conv3d(params["final"], h, padding=1)
+        return head_activation(h, cfg)
 
 
 def decoder_tail_folded(up_conv: Params, folded_final: Params, h: torch.Tensor,
@@ -190,9 +208,10 @@ def decoder_tail_folded(up_conv: Params, folded_final: Params, h: torch.Tensor,
     """decoder_tail with the final conv folded before the shuffle
     (`ops/subpixel.py::fold_final_conv`): up_conv -> k3 conv on the 4^3
     grid (C_out * 8 channels) -> pixel shuffle -> head activation."""
-    h = blocks.conv3d(up_conv, h, padding=1)
-    y = blocks.conv3d(folded_final, h, padding=1)
-    return head_activation(blocks.pixel_shuffle_3d(y, 2), cfg)
+    with span("decode/tail"):
+        h = blocks.conv3d(up_conv, h, padding=1)
+        y = blocks.conv3d(folded_final, h, padding=1)
+        return head_activation(blocks.pixel_shuffle_3d(y, 2), cfg)
 
 
 def decoder_apply(params: Params, z: torch.Tensor,

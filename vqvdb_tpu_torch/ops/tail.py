@@ -30,6 +30,7 @@ from torch.func import vjp, vmap
 from vqvdb_tpu_torch.core.config import LATENT_VOXELS, LEAF_DIM, ModelConfig
 from vqvdb_tpu_torch.models import blocks
 from vqvdb_tpu_torch.models.vqvae import head_activation
+from vqvdb_tpu_torch.utils.profiler import span
 
 
 def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
@@ -58,9 +59,11 @@ def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
 
 def apply_decoder_tail(folded: Dict, h: torch.Tensor, cfg: ModelConfig
                        ) -> torch.Tensor:
-    """h (B,4,4,4,C_in) -> head activations (B,8,8,8,C_out) f32."""
+    """h (B,4,4,4,C_in) -> head activations (B,8,8,8,C_out) f32 (the trace
+    range `decode/tail`)."""
     b = h.shape[0]
-    k = folded["k"].to(h.dtype).to(torch.float32)
-    logits = blocks.row_blocks(h.reshape(b, -1).to(torch.float32), k) + folded["b"]
-    logits = logits.reshape(b, LEAF_DIM, LEAF_DIM, LEAF_DIM, cfg.in_channels)
-    return head_activation(logits, cfg)
+    with span("decode/tail"):
+        k = folded["k"].to(h.dtype).to(torch.float32)
+        logits = blocks.row_blocks(h.reshape(b, -1).to(torch.float32), k) + folded["b"]
+        logits = logits.reshape(b, LEAF_DIM, LEAF_DIM, LEAF_DIM, cfg.in_channels)
+        return head_activation(logits, cfg)

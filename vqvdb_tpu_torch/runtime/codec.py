@@ -29,9 +29,20 @@ v4 when K > 256, v5 (compressed frames) and v6 (with the near-lossless
 residual, whose encode batches also run the decode step, so the stored
 correction is measured against the decode that `decompress` repeats).
 `decode_stream` / `decompress` select grids by name and leaves by bounding
-box; `compress_stream` encodes lazily read leaf streams. Each batch's padding
-and device dispatch are timed under `host/pad` and `device/dispatch` in
-`VQCodec.profiler` (`utils/profiler.py`).
+box; `compress_stream` encodes lazily read leaf streams.
+
+`VQCodec.profiler` (`utils/profiler.py`) times each stage on the host clock
+and counts it: the constructor's `init/weights`, `init/tail_fold`,
+`init/score_operand`, `init/down_fold` and `init/replicate`; per batch
+`host/stage_in` (the copy into the pinned input), `host/pad` (the ragged
+tail zeroed), `device/dispatch` (the upload, the device steps and the
+readback enqueued), `device/readback_wait` (the host waiting for a batch's
+results, `_collect`) and, in `decompress`, `host/scatter` (the output grid allocated and
+a batch's rows and origins copied into it). Under a running
+`torch.profiler` each stage is also a trace range, and spans name the rest:
+`host/file` (a file opened or closed), `host/read_frames`,
+`host/write_frames`, `device/read_back` and the parts of each device step
+(`decode/*`, `encode/*`, `rb/*`).
 
 With a mesh (`parallel/mesh.py`) every padded batch is cut into the mesh's
 shards; each local device runs the same steps (the same kernel launches) on
@@ -84,10 +95,22 @@ from vqvdb_tpu_torch.parallel.mesh import Mesh, make_sharded_encode, replicate, 
 from vqvdb_tpu_torch.runtime.native_io import copy_into
 from vqvdb_tpu_torch.runtime.residual import RESIDUAL_MODES, apply_residual, quantize_residual
 from vqvdb_tpu_torch.utils.errors import ModelMismatchError
-from vqvdb_tpu_torch.utils.profiler import Profiler
+from vqvdb_tpu_torch.utils.profiler import Profiler, span
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
 
 PIPELINE_DEPTH = 2
+
+
+@contextlib.contextmanager
+def _writing(path, version: int, compression: str) -> Iterator[VqvdbWriter]:
+    """A `VqvdbWriter` whose opening and closing are the trace range
+    `host/file`."""
+    with span("host/file"):
+        w = VqvdbWriter(path, version=version, compression=compression)
+    with w:
+        yield w
+        with span("host/file"):
+            w.close()
 
 
 class _Slot:
@@ -125,7 +148,8 @@ class VQCodec:
     constructor raises). The exact weight rewrites (folded decoder tail,
     folded projection scores and the score kernel's split operand, packed
     down conv) are computed once here. `profiler` (default: a new one)
-    times each batch's padding and device dispatch.
+    times the constructor's and each batch's stages (the module's
+    docstring names them).
     """
 
     def __init__(self, params: Dict, model_config: ModelConfig,
@@ -134,8 +158,9 @@ class VQCodec:
                  mesh: Optional[Mesh] = None) -> None:
         self.mcfg = model_config
         self.ccfg = codec_config or CodecConfig()
-        # Stage timers (host wall clock) of the pipelined batches: pass one
-        # to aggregate across codecs, or read codec.profiler.report().
+        # Stage timers (host wall clock) of the construction and of the
+        # pipelined batches: pass one to aggregate across codecs, or read
+        # codec.profiler.report().
         self.profiler = profiler if profiler is not None else Profiler()
         self.mesh = mesh
         if mesh is not None:
@@ -143,48 +168,53 @@ class VQCodec:
                 raise ValueError(f"device {device} is not the mesh's {mesh.devices[0]}")
             device = mesh.devices[0]
             mesh.shard_rows(self.ccfg.batch_size)  # ValueError unless it divides
-        self.params = params_from_jax(params, model_config, device)
-        check_tree(self.params, model_config)
-        self.device = self.params["vq"]["embedding"].device
-        self.dtype = self.ccfg.torch_dtype
-        # The decode codebook is cast to the compute dtype before the lookup.
-        self._codebook = self.params["vq"]["embedding"].to(self.dtype)
+        prof = self.profiler
+        with prof("init/weights"):
+            self.params = params_from_jax(params, model_config, device)
+            check_tree(self.params, model_config)
+            self.device = self.params["vq"]["embedding"].device
+            self.dtype = self.ccfg.torch_dtype
+            # The decode codebook is cast to the compute dtype before the lookup.
+            self._codebook = self.params["vq"]["embedding"].to(self.dtype)
         self._folded_tail = self._folded_final = None
-        if self.ccfg.fuse_decoder_tail:
-            self._folded_tail = fold_decoder_tail(self.params["decoder"],
-                                                  self.mcfg)
-        elif self.ccfg.fuse_final_conv:
-            fin = params["decoder"]["final"]
-            self._folded_final = {k: v.to(self.device) for k, v in fold_final_conv(
-                np.asarray(fin["w"]), np.asarray(fin["b"])).items()}
+        if self.ccfg.fuse_decoder_tail or self.ccfg.fuse_final_conv:
+            with prof("init/tail_fold"):
+                if self.ccfg.fuse_decoder_tail:
+                    self._folded_tail = fold_decoder_tail(self.params["decoder"],
+                                                          self.mcfg)
+                else:
+                    fin = params["decoder"]["final"]
+                    self._folded_final = {k: v.to(self.device) for k, v in fold_final_conv(
+                        np.asarray(fin["w"]), np.asarray(fin["b"])).items()}
         # Residual-VQ needs the latent itself for its later stages, so the
         # projection folds into the scores only for a single-stage model.
         self._score_mc = None
-        if self.ccfg.fuse_proj_quantize and self.mcfg.num_quantizers == 1:
-            proj = params["encoder"]["proj"]
-            m, c = fold_proj_into_scores(
-                np.asarray(proj["w"]), np.asarray(proj["b"]),
-                self.params["vq"]["embedding"].cpu().numpy())
-            self._score_mc = (m.to(self.device), c.to(self.device))
         # What the score kernel takes instead of M or a codebook (M split
         # into bf16 terms in its shared-memory order), made once here: for
         # the folded scores, or else for each quantizer stage's codebook.
         self._score_prep = self._stage_prep = None
-        if self._score_mc is not None:
-            self._score_prep = prepare_scores(*self._score_mc)
-        else:
-            books = self.params["vq"]["embedding"]
-            self._stage_prep = [prepare_codebook(e) for e in
-                                (books if books.dim() == 3 else books[None])]
+        with prof("init/score_operand"):
+            if self.ccfg.fuse_proj_quantize and self.mcfg.num_quantizers == 1:
+                proj = params["encoder"]["proj"]
+                m, c = fold_proj_into_scores(
+                    np.asarray(proj["w"]), np.asarray(proj["b"]),
+                    self.params["vq"]["embedding"].cpu().numpy())
+                self._score_mc = (m.to(self.device), c.to(self.device))
+                self._score_prep = prepare_scores(*self._score_mc)
+            else:
+                books = self.params["vq"]["embedding"]
+                self._stage_prep = [prepare_codebook(e) for e in
+                                    (books if books.dim() == 3 else books[None])]
         # As in the JAX package, the packed down conv rides on the folded
         # projection's encode path.
         self._folded_down = None
         if (self.ccfg.pack_down_conv and self._score_mc is not None
                 and self.mcfg.encoder_arch == "reference"):
-            down = params["encoder"]["down"]
-            self._folded_down = {
-                k: v.to(self.device) for k, v in fold_strided_conv(
-                    np.asarray(down["w"]), np.asarray(down["b"])).items()}
+            with prof("init/down_fold"):
+                down = params["encoder"]["down"]
+                self._folded_down = {
+                    k: v.to(self.device) for k, v in fold_strided_conv(
+                        np.asarray(down["w"]), np.asarray(down["b"])).items()}
         # What the device steps read, per device: on a mesh each local device
         # holds a copy of the first device's bits.
         consts = {"params": self.params, "codebook": self._codebook,
@@ -193,9 +223,10 @@ class VQCodec:
                   "folded_down": self._folded_down}
         self._consts = {self.device: consts}
         if mesh is not None:
-            for dev, rep in zip(mesh.devices, replicate(consts, mesh)):
-                self._consts.setdefault(dev, rep)
-            mesh.synchronize()
+            with prof("init/replicate"):
+                for dev, rep in zip(mesh.devices, replicate(consts, mesh)):
+                    self._consts.setdefault(dev, rep)
+                mesh.synchronize()
         self._slots: Dict[str, list] = {}
         # (torch, numpy) dtypes of host index buffers: u8, or u16 as int16 bits
         self._host_idx = ((torch.uint8, np.uint8) if self.mcfg.num_embeddings <= 256
@@ -220,18 +251,21 @@ class VQCodec:
         r = self._consts[leaves.device]
         x = leaves.to(self.dtype)
         b = x.shape[0]
-        if r["score_prep"] is not None:
-            h = self._features(x)
-            idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), r["score_prep"])
-        else:
-            z = encoder_apply(r["params"]["encoder"], x, self.mcfg)
-            flat = z.reshape(-1, self.mcfg.embedding_dim).to(torch.float32)
-            if self.mcfg.num_quantizers > 1:
-                idx = rvq_indices(flat, r["params"]["vq"]["embedding"], r["stage_prep"])
+        fused = r["score_prep"] is not None
+        with span("encode/features"):
+            h = self._features(x) if fused else encoder_apply(r["params"]["encoder"], x,
+                                                              self.mcfg)
+        with span("encode/score_argmin" if fused else "encode/quantize"):
+            if fused:
+                idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), r["score_prep"])
             else:
-                idx = fused_nearest_indices(flat, r["stage_prep"][0])
-        idx = idx.reshape((b,) + self.mcfg.index_shape)
-        return idx.to(torch.uint8) if self.mcfg.num_embeddings <= 256 else idx
+                flat = h.reshape(-1, self.mcfg.embedding_dim).to(torch.float32)
+                if self.mcfg.num_quantizers > 1:
+                    idx = rvq_indices(flat, r["params"]["vq"]["embedding"], r["stage_prep"])
+                else:
+                    idx = fused_nearest_indices(flat, r["stage_prep"][0])
+            idx = idx.reshape((b,) + self.mcfg.index_shape)
+            return idx.to(torch.uint8) if self.mcfg.num_embeddings <= 256 else idx
 
     @torch.inference_mode()
     def _decode_step(self, indices: torch.Tensor) -> torch.Tensor:
@@ -239,12 +273,13 @@ class VQCodec:
         [B,8,8,8,C] f32, on the indices' device."""
         r = self._consts[indices.device]
         b = indices.shape[0]
-        if self.mcfg.num_quantizers > 1:
-            z = rvq_dequantize(indices.reshape(-1, self.mcfg.num_quantizers),
-                               r["codebook"])
-        else:
-            z = fused_dequantize(indices.reshape(-1), r["codebook"])
-        z = z.reshape((b,) + self.mcfg.latent_shape + (self.mcfg.embedding_dim,))
+        with span("decode/dequantize"):
+            if self.mcfg.num_quantizers > 1:
+                z = rvq_dequantize(indices.reshape(-1, self.mcfg.num_quantizers),
+                                   r["codebook"])
+            else:
+                z = fused_dequantize(indices.reshape(-1), r["codebook"])
+            z = z.reshape((b,) + self.mcfg.latent_shape + (self.mcfg.embedding_dim,))
         dec = r["params"]["decoder"]
         h = decoder_pre_tail(dec, z, self.mcfg)
         if r["folded_tail"] is not None:
@@ -306,7 +341,9 @@ class VQCodec:
         "encode" (leaves -> indices), "decode" (indices -> leaves) or
         "residual" (leaves -> indices, and those indices, still on the
         device, through the decode step as `decompress` runs it). On a
-        multi-process mesh each output is all-gathered over the group."""
+        multi-process mesh each output is all-gathered over the group. Index
+        outputs stay in the step's dtype: `_read_back`'s copy takes them to
+        the host buffers' (u8, or u16 as int16 bits)."""
         mesh = self.mesh
         group = mesh.group if mesh is not None and mesh.multiprocess else None
 
@@ -318,7 +355,7 @@ class VQCodec:
                 x = x.to(torch.int32) & 0xFFFF
             return (gather(self._decode_step(x)),)
         idx = self._encode_step(x)
-        host = gather(idx).to(self._host_idx[0])
+        host = gather(idx)
         return (host,) if kind == "encode" else (host, gather(self._decode_step(idx)))
 
     def _pipelined(self, kind: str, batches: Iterable[Tuple[np.ndarray, object]]
@@ -337,6 +374,11 @@ class VQCodec:
         every = mesh is not None and mesh.multiprocess
         pending: collections.deque = collections.deque()
         dispatched = 0
+
+        def collect(item):
+            with self.profiler("device/readback_wait"):
+                return self._collect(item)
+
         for chunk, tag in batches:
             n = chunk.shape[0]
             if n == 0:
@@ -344,18 +386,19 @@ class VQCodec:
             # A stage is reused only after _collect has waited on its events.
             stage = stages[dispatched % PIPELINE_DEPTH]
             dispatched += 1
-            src = np.ascontiguousarray(chunk, stage.slots[0].inp_dtype)
-            if not src.flags.writeable:  # a frame read from a file
-                src = src.copy()
-            src = torch.from_numpy(src.view(np.int16) if src.dtype == np.uint16 else src)
-            live = []
-            for j, slot in enumerate(stage.slots):
-                r0 = (first + j) * per
-                rows = max(0, min(per, n - r0))
-                if rows or every:
-                    # torch copies (in threads) what numpy would copy in one
-                    slot.inp[:rows].copy_(src[r0:r0 + rows])
-                    live.append((j, slot, r0, rows))
+            with self.profiler("host/stage_in"):
+                src = np.ascontiguousarray(chunk, stage.slots[0].inp_dtype)
+                if not src.flags.writeable:  # a frame read from a file
+                    src = src.copy()
+                src = torch.from_numpy(src.view(np.int16) if src.dtype == np.uint16 else src)
+                live = []
+                for j, slot in enumerate(stage.slots):
+                    r0 = (first + j) * per
+                    rows = max(0, min(per, n - r0))
+                    if rows or every:
+                        # torch copies (in threads) what numpy would copy in one
+                        slot.inp[:rows].copy_(src[r0:r0 + rows])
+                        live.append((j, slot, r0, rows))
             if any(rows < per for _, _, _, rows in live):
                 with self.profiler("host/pad"):
                     for _, slot, _, rows in live:
@@ -368,20 +411,22 @@ class VQCodec:
                             kind, slot.inp.to(dev, non_blocking=True)))
             pending.append((stage, live, tag, n))
             if len(pending) >= PIPELINE_DEPTH:
-                yield self._collect(pending.popleft())
+                yield collect(pending.popleft())
         while pending:
-            yield self._collect(pending.popleft())
+            yield collect(pending.popleft())
 
     @staticmethod
     def _read_back(slot: _Slot, results: Sequence[torch.Tensor]) -> None:
         """Enqueue the copies of one device's step results into its slot's
-        host buffers (from the card: asynchronous, into pinned memory, the
-        slot's event recorded after them); `_collect` takes them."""
+        host buffers, in their dtype (from the card: asynchronous, into
+        pinned memory, the slot's event recorded after them); `_collect`
+        takes them."""
         cuda = slot.done is not None
-        for out, res in zip(slot.outs, results):
-            out.copy_(res, non_blocking=cuda)
-        if cuda:
-            slot.done.record()
+        with span("device/read_back"):
+            for out, res in zip(slot.outs, results):
+                out.copy_(res, non_blocking=cuda)
+            if cuda:
+                slot.done.record()
 
     @staticmethod
     def _collect(item) -> Tuple[List[np.ndarray], object, int]:
@@ -466,7 +511,8 @@ class VQCodec:
         if residual is not None:
             scales, q = quantize_residual(leaves - outs[1], residual, residual_tol)
         t1 = time.perf_counter()
-        w.write_batch(outs[0], origins, scales, q)
+        with span("host/write_frames"):
+            w.write_batch(outs[0], origins, scales, q)
         host["quantize_residual"] += t1 - t0
         host["write_frames"] += time.perf_counter() - t1
 
@@ -516,7 +562,7 @@ class VQCodec:
         aborted = False
         t0 = time.perf_counter()
         total = 0
-        with VqvdbWriter(out_path, version=format_version, compression=compression) as w:
+        with _writing(out_path, format_version, compression) as w:
             for grid in grids:
                 if aborted:
                     break
@@ -585,7 +631,7 @@ class VQCodec:
             if have:
                 yield np.concatenate(buf) if len(buf) > 1 else buf[0]
 
-        with VqvdbWriter(out_path, version=format_version, compression=compression) as w:
+        with _writing(out_path, format_version, compression) as w:
             for stream in streams:
                 if aborted:
                     break
@@ -635,7 +681,9 @@ class VQCodec:
             lo = np.asarray(bbox[0], np.int64).reshape(3)
             hi = np.asarray(bbox[1], np.int64).reshape(3)
         bs = self.ccfg.batch_size
-        with VqvdbReader(in_path) as r:
+        with span("host/file"):
+            r = VqvdbReader(in_path)
+        with r:
             if r.num_embeddings != self.mcfg.num_embeddings:
                 raise ModelMismatchError(
                     f"file has {r.num_embeddings} embeddings, model has "
@@ -643,7 +691,8 @@ class VQCodec:
 
             def read():
                 t0 = time.perf_counter()
-                got = r.next_batch_residual(bs)
+                with span("host/read_frames"):
+                    got = r.next_batch_residual(bs)
                 host["read_frames"] += time.perf_counter() - t0
                 return got
 
@@ -733,22 +782,24 @@ class VQCodec:
 
         for meta, rows, origins, n, sc, res in self._decode_stream_host(in_path, grids,
                                                                         bbox, host):
-            if meta is not cur_meta:
-                finish()
-                cur_meta, cursor = meta, 0
-                # total_blocks over-allocates under a bbox selection; finish()
-                # keeps what was decoded.
-                leaves_out = np.empty((meta.total_blocks,) + blk, np.float32)
-                origins_out = np.empty((meta.total_blocks, 3), np.int32)
-                if progress:
-                    print(f"[decompress] {meta.name}: {meta.total_blocks} leaves")
-            dst = leaves_out[cursor: cursor + n]
-            dst[...] = rows
+            with self.profiler("host/scatter"):
+                if meta is not cur_meta:
+                    finish()
+                    cur_meta, cursor = meta, 0
+                    # total_blocks over-allocates under a bbox selection; finish()
+                    # keeps what was decoded.
+                    leaves_out = np.empty((meta.total_blocks,) + blk, np.float32)
+                    origins_out = np.empty((meta.total_blocks, 3), np.int32)
+                    if progress:
+                        print(f"[decompress] {meta.name}: {meta.total_blocks} leaves")
+                dst = leaves_out[cursor: cursor + n]
+                dst[...] = rows
+                origins_out[cursor: cursor + n] = origins
             t1 = time.perf_counter()
             apply_residual(dst, sc, res)
             host["apply_residual"] += time.perf_counter() - t1
-            origins_out[cursor: cursor + n] = origins
             cursor += n
             total += n
-        finish()
+        with self.profiler("host/scatter"):
+            finish()
         return out_grids, self._stats(total, t0, host)
