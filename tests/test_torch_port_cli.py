@@ -111,7 +111,9 @@ def test_vdb_encode_decode_match_jax_cli(scene, capsys):
     rc, dec = _run(cli, ["decode", theirs, out_vdb, "--model", MODEL, *CPU, *F32], capsys)
     jrc, jdec = _run(jax_cli, ["decode", theirs, jout_vdb, "--model", MODEL, *F32], capsys)
     assert rc == jrc == 0 and dec["vdb"] == str(out_vdb)
-    assert set(dec) == set(jdec) | {"host_seconds"}
+    assert set(dec) == set(jdec) | {"host_seconds", "direct_readback_share",
+                                    "pinned_pool_growth"}
+    assert dec["direct_readback_share"] == 1.0 and dec["pinned_pool_growth"] == 0
     (recon,), (jrecon,) = read_vdb_leafgrids(out_vdb), read_vdb_leafgrids(jout_vdb)
     np.testing.assert_array_equal(recon.origins, jrecon.origins)
     np.testing.assert_allclose(recon.leaves, jrecon.leaves, atol=1e-5)

@@ -1060,3 +1060,40 @@ def test_card_every_event_of_a_call_is_near_its_program_range(tmp_path, model, d
                                tmp_path / "f.vqvdb", acts)
     assert "device/dispatch" in names and "rb/conv2" in names
     assert max(worst.values()) < LOOKBACK, worst
+
+
+@pytest.mark.cuda
+def test_card_decompress_reads_back_into_pinned_caller_memory(tmp_path):
+    """The cells' codec (flagship, batch 4,096, bf16) on a file of four
+    grids, one of three batches: each grid's leaves are page-locked memory
+    of torch's pool, bit-equal to `decode_indices` of the file's indices;
+    with the first call's grids dropped, a second call reuses the pool's
+    blocks (it adds none); two calls' grids held at once do not alias."""
+    import gc
+
+    from test_torch_port_readback import assert_grids_equal, expected, field
+
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    _card()
+    codec = api.make_codec(_MODELS / "scalar.vqmodel", device="cuda")
+    rng = np.random.default_rng(0)
+    n = 2 * 4096 + 808
+    origins = (np.stack(np.unravel_index(np.arange(n), (32, 32, 32)), 1) * 8).astype(np.int32)
+    big = LeafGrid("smoke", origins, rng.random((n, 8, 8, 8, 1), np.float32))
+    path = tmp_path / "f.vqvdb"
+    codec.compress([big, *field()], path)
+    got, stats = codec.decompress(path)
+    assert all(torch.from_numpy(g.leaves).is_pinned() for g in got)
+    assert_grids_equal(got, expected(codec, path))
+    assert stats["direct_readback_share"] == 1.0
+    del got
+    gc.collect()
+    again, stats = codec.decompress(path)
+    assert stats["pinned_pool_growth"] == 0, stats
+    assert stats["direct_readback_share"] == 1.0
+    third, _ = codec.decompress(path)
+    for a, b in zip(again, third):
+        assert not np.shares_memory(a.leaves, b.leaves)
+        assert a.leaves.tobytes() == b.leaves.tobytes()

@@ -146,7 +146,9 @@ def decode_sequence(
     batch_size: int = 4096,
     device: DeviceLike = None,
 ) -> Tuple[List[List[LeafGrid]], dict]:
-    """Decode a directory of per-frame `.vqvdb` files, in name order."""
+    """Decode a directory of per-frame `.vqvdb` files, in name order. On a
+    card every frame's leaves are page-locked memory held until the caller
+    drops them (`VQCodec.decompress`)."""
     codec = _codec(model, batch_size, device)
     frames, per_frame = [], []
     for f in sorted(Path(in_dir).glob(pattern)):

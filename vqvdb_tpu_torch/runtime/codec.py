@@ -31,14 +31,27 @@ correction is measured against the decode that `decompress` repeats).
 `decode_stream` / `decompress` select grids by name and leaves by bounding
 box; `compress_stream` encodes lazily read leaf streams.
 
+`decompress` hands the pipeline each batch's place in the output grid when
+the batch is dispatched, and the device's copy of the decoded rows lands
+there directly: no host buffer or host copy lies between them. On the card
+the grid's leaves come from torch's pinned host pool (page-locked, sizes
+rounded up to a power of two); the returned `LeafGrid.leaves` is a numpy
+view that keeps the block alive, and when the caller drops the grid the
+block goes back to the pool, not to the OS, for the next decompress. Its
+stats count this: `direct_readback_share` (decoded rows whose device copy
+landed in the output grid, over rows decoded) and `pinned_pool_growth`
+(pinned blocks the call added to the pool; 0 on the CPU).
+
 `VQCodec.profiler` (`utils/profiler.py`) times each stage on the host clock
 and counts it: the constructor's `init/weights`, `init/tail_fold`,
 `init/score_operand`, `init/down_fold` and `init/replicate`; per batch
 `host/stage_in` (the copy into the pinned input), `host/pad` (the ragged
 tail zeroed), `device/dispatch` (the upload, the device steps and the
 readback enqueued), `device/readback_wait` (the host waiting for a batch's
-results, `_collect`) and, in `decompress`, `host/scatter` (the output grid allocated and
-a batch's rows and origins copied into it). Under a running
+results, `_collect`) and, in `decompress`, `host/scatter` (what is left of
+placing a batch in the output grid once the device copies its rows there:
+the grid allocated at its first batch, the batch's origins copied in, and
+the grids assembled at the end). Under a running
 `torch.profiler` each stage is also a trace range, and spans name the rest:
 `host/file` (a file opened or closed), `host/read_frames`,
 `host/write_frames`, `device/read_back` and the parts of each device step
@@ -127,6 +140,9 @@ class _Slot:
         self.outs = [torch.empty(shape, dtype=dt[0], pin_memory=pin) for shape, dt in outs]
         self.outs_np = [t.numpy().view(dt[1]) for t, (_, dt) in zip(self.outs, outs)]
         self.done = torch.cuda.Event() if pin else None
+        # The caller's host tensors that the batch in flight is read back
+        # into instead of `outs` (the rows this device returns), or None.
+        self.into: Optional[List[torch.Tensor]] = None
 
 
 class _Stage:
@@ -137,6 +153,9 @@ class _Stage:
     def __init__(self, slots: List[_Slot], whole=None):
         self.slots = slots
         self.whole = None if whole is None else [np.empty(shape, dt[1]) for shape, dt in whole]
+        # The caller's destination of the batch in flight (its n rows per
+        # output), or None; `_collect` hands it back and lets it go.
+        self.into: Optional[List[torch.Tensor]] = None
 
 
 class VQCodec:
@@ -358,15 +377,20 @@ class VQCodec:
         host = gather(idx)
         return (host,) if kind == "encode" else (host, gather(self._decode_step(idx)))
 
-    def _pipelined(self, kind: str, batches: Iterable[Tuple[np.ndarray, object]]
+    def _pipelined(self, kind: str, batches: Iterable[Tuple[np.ndarray, object]],
+                   into: Optional[Callable[[object, int], List[torch.Tensor]]] = None
                    ) -> Iterator[Tuple[List[np.ndarray], object, int]]:
         """Run each (host batch of <= batch_size rows, tag) through the
         device steps of `kind` (`_steps`); yields (host result rows per
         output, tag, n). A yielded array is a view of a reused buffer: use
-        it before the next one. On a mesh local device j takes rows
-        [(first_shard + j) * B/size, ...) of the padded batch on its own
-        stream; a shard wholly past the batch's rows is not run, except on a
-        multi-process mesh, whose ranks all take part in each gather."""
+        it before the next one. With `into`, into(tag, n) is called as a
+        batch is dispatched and returns a host tensor of n rows per output
+        (pinned on the card); the device copies the results straight there
+        and the yielded arrays are views of them. On a mesh local device j
+        takes rows [(first_shard + j) * B/size, ...) of the padded batch on
+        its own stream; a shard wholly past the batch's rows is not run,
+        except on a multi-process mesh, whose ranks all take part in each
+        gather."""
         stages = self._slots_for(kind)
         mesh = self.mesh
         per = self.ccfg.batch_size if mesh is None else mesh.shard_rows(self.ccfg.batch_size)
@@ -403,6 +427,12 @@ class VQCodec:
                 with self.profiler("host/pad"):
                     for _, slot, _, rows in live:
                         slot.inp[rows:].zero_()
+            stage.into = None if into is None else into(tag, n)
+            for _, slot, r0, rows in live:
+                # One slot holds the whole (or gathered) batch; several local
+                # devices each read their shard's rows back into their part.
+                slot.into = (stage.into if stage.whole is None or stage.into is None
+                             else [d[r0:r0 + rows] for d in stage.into])
             with self.profiler("device/dispatch"):
                 for j, slot, _, _ in live:
                     with (mesh.stream(j) if mesh is not None else contextlib.nullcontext()):
@@ -418,13 +448,14 @@ class VQCodec:
     @staticmethod
     def _read_back(slot: _Slot, results: Sequence[torch.Tensor]) -> None:
         """Enqueue the copies of one device's step results into its slot's
-        host buffers, in their dtype (from the card: asynchronous, into
-        pinned memory, the slot's event recorded after them); `_collect`
-        takes them."""
+        host buffers, or into the caller's `slot.into` (their first rows),
+        in the host tensors' dtype (from the card: asynchronous, into pinned
+        memory, the slot's event recorded after them); `_collect` takes
+        them."""
         cuda = slot.done is not None
         with span("device/read_back"):
-            for out, res in zip(slot.outs, results):
-                out.copy_(res, non_blocking=cuda)
+            for out, res in zip(slot.outs if slot.into is None else slot.into, results):
+                out.copy_(res[:out.shape[0]], non_blocking=cuda)
             if cuda:
                 slot.done.record()
 
@@ -434,6 +465,11 @@ class VQCodec:
         for _, slot, _, _ in live:
             if slot.done is not None:
                 slot.done.synchronize()
+        if stage.into is not None:  # the rows are in the caller's memory
+            got, stage.into = stage.into, None
+            for _, slot, _, _ in live:
+                slot.into = None
+            return [t.numpy() for t in got], tag, n
         if stage.whole is None:  # one slot holds the batch
             return [a[:n] for a in live[0][1].outs_np], tag, n
         for _, slot, r0, rows in live:
@@ -667,12 +703,14 @@ class VQCodec:
         return stats
 
     def _decode_stream_host(self, in_path: Union[str, Path], grids, bbox,
-                            host: Dict[str, float]):
+                            host: Dict[str, float], into=None):
         """decode_stream's core: yields (grid metadata, decoded rows [n,...]
         as a view of a reused pinned buffer, origins, n, scales, residual)
         per full batch of the selection. scales / residual are None for
         grids without residuals; the host seconds spent reading (and
-        decompressing) frames accumulate in host["read_frames"]."""
+        decompressing) frames accumulate in host["read_frames"]. `into` is
+        `_pipelined`'s, called with the tag (metadata, origins, scales,
+        residual); the rows are then views of what it returned."""
         names = None
         if grids is not None:
             names = {grids} if isinstance(grids, str) else set(grids)
@@ -738,7 +776,8 @@ class VQCodec:
                     if carry is not None:
                         yield carry[0], (meta, *carry[1])
 
-            for (rows,), (meta, org, sc, res), n in self._pipelined("decode", batches()):
+            for (rows,), (meta, org, sc, res), n in self._pipelined("decode", batches(),
+                                                                   into):
                 yield meta, rows, org, n, sc, res
 
     def decode_stream(self, in_path: Union[str, Path], *, grids=None, bbox=None):
@@ -764,42 +803,75 @@ class VQCodec:
                    grids=None, bbox=None) -> Tuple[List[LeafGrid], dict]:
         """Decode a `.vqvdb` file (v3 to v6) into LeafGrids; `grids` / `bbox`
         select as in `decode_stream`, and a grid with nothing selected is
-        left out. Returns (grids, {leaves, seconds, leaves_per_sec,
-        host_seconds}); host_seconds splits frame reading (decompression
-        included) and the v6 correction from the rest."""
+        left out.
+
+        A grid's leaves are allocated when its first batch is dispatched, and
+        the device copies every batch's decoded rows straight into them; v6
+        corrections are then added in place. On a card that memory is
+        page-locked and comes from torch's pinned host pool, whose blocks
+        are sizes rounded up to a power of two (128 MB for a 57,250-leaf
+        scalar grid, 512 MB for a vec3 one). `leaves` is a numpy view that
+        keeps its block alive while the caller holds the grid (or any view
+        of it); once dropped, the block returns to the pool, not to the OS,
+        and a later decompress reuses it without faulting or pinning pages
+        again. So a caller that holds many decoded grids holds that much
+        page-locked memory. On the CPU the leaves are ordinary memory.
+
+        Returns (grids, {leaves, seconds, leaves_per_sec, host_seconds,
+        direct_readback_share, pinned_pool_growth}); host_seconds splits
+        frame reading (decompression included) and the v6 correction from
+        the rest; direct_readback_share is the share of decoded rows whose
+        copy from the device landed in the output grid (1.0, also when
+        nothing was selected); pinned_pool_growth counts the blocks the call
+        added to the pinned pool (0 on the CPU, and 0 in a steady loop over
+        frames once the pool holds what the caller keeps)."""
         t0 = time.perf_counter()
+        pool0 = self._pinned_blocks()
         host = {"read_frames": 0.0, "apply_residual": 0.0}
-        out_grids: List[LeafGrid] = []
-        total = cursor = 0
-        cur_meta = leaves_out = origins_out = None
         blk = (LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels)
+        pin = self.device.type == "cuda"
+        made: List[list] = []  # [metadata, leaves, origins, rows dispatched] per grid
 
-        def finish():
-            if cur_meta is not None:
-                out_grids.append(LeafGrid(name=cur_meta.name, origins=origins_out[:cursor],
-                                          leaves=leaves_out[:cursor],
-                                          transform=cur_meta.transform))
-
-        for meta, rows, origins, n, sc, res in self._decode_stream_host(in_path, grids,
-                                                                        bbox, host):
+        def into(tag, n):
+            """The next n rows of the grid of a batch being dispatched (the
+            grid allocated at its first batch); its origins copied in."""
+            meta, origins = tag[0], tag[1]
             with self.profiler("host/scatter"):
-                if meta is not cur_meta:
-                    finish()
-                    cur_meta, cursor = meta, 0
-                    # total_blocks over-allocates under a bbox selection; finish()
-                    # keeps what was decoded.
-                    leaves_out = np.empty((meta.total_blocks,) + blk, np.float32)
-                    origins_out = np.empty((meta.total_blocks, 3), np.int32)
+                if not made or made[-1][0] is not meta:
+                    # total_blocks over-allocates under a bbox selection; the
+                    # grid keeps what was decoded.
+                    made.append([meta, torch.empty((meta.total_blocks,) + blk,
+                                                   dtype=torch.float32, pin_memory=pin),
+                                 np.empty((meta.total_blocks, 3), np.int32), 0])
                     if progress:
                         print(f"[decompress] {meta.name}: {meta.total_blocks} leaves")
-                dst = leaves_out[cursor: cursor + n]
-                dst[...] = rows
-                origins_out[cursor: cursor + n] = origins
+                _, leaves, origins_out, s = made[-1]
+                origins_out[s: s + n] = origins
+                made[-1][3] = s + n
+                return [leaves[s: s + n]]
+
+        total = direct = k = 0
+        for meta, rows, _, n, sc, res in self._decode_stream_host(in_path, grids, bbox,
+                                                                   host, into):
+            while made[k][0] is not meta:  # batches come back in dispatch order
+                k += 1
+            direct += n if np.may_share_memory(rows, made[k][1].numpy()) else 0
             t1 = time.perf_counter()
-            apply_residual(dst, sc, res)
+            apply_residual(rows, sc, res)
             host["apply_residual"] += time.perf_counter() - t1
-            cursor += n
             total += n
         with self.profiler("host/scatter"):
-            finish()
-        return out_grids, self._stats(total, t0, host)
+            out_grids = [LeafGrid(name=meta.name, origins=origins[:n],
+                                  leaves=leaves.numpy()[:n], transform=meta.transform)
+                         for meta, leaves, origins, n in made]
+        stats = self._stats(total, t0, host)
+        stats.update(direct_readback_share=direct / total if total else 1.0,
+                     pinned_pool_growth=self._pinned_blocks() - pool0)
+        return out_grids, stats
+
+    def _pinned_blocks(self) -> int:
+        """Blocks torch's pinned host pool has created in this process (0
+        when the codec runs on the CPU)."""
+        if self.device.type != "cuda":
+            return 0
+        return torch.cuda.host_memory_stats()["num_host_alloc"]
