@@ -8,7 +8,7 @@ Decode (the program's `decompress` of a frame file -> LeafGrid):
   leaf_max_abs   the largest |program - reference| over every voxel
   leaf_rel_rms   the root-mean-square of program - reference over that of
                  the reference
-Encode (the program's `compress` of a frame -> v3 file):
+Encode (the program's `compress` of a frame -> a file):
   origins_off    leaves whose origin in the file differs from the frame's,
                  plus any difference in the leaf count (exact: limit 0)
   index_mismatch_share   latent rows whose index differs from the
@@ -21,7 +21,10 @@ Encode (the program's `compress` of a frame -> v3 file):
                  shows here however many leaves are right
 
 The reference runs after the window has closed and the program's state is
-freed, in blocks of rows, on the device the window ran on.
+freed, in blocks of rows, on the device the window ran on: BLOCK leaves a
+block to decode, `encode_block(K)` to encode, which holds the float64
+distance matrix of a block near 0.5 GB at any K. Indices reach torch as
+int64, from u8 or u16 files alike.
 """
 
 from __future__ import annotations
@@ -32,6 +35,17 @@ import numpy as np
 import torch
 
 BLOCK = 4096
+
+
+def encode_block(num_embeddings: int) -> int:
+    """Leaves a block of the encode check: BLOCK up to 256 codes, fewer beyond
+    (64 rows a leaf, K float64 distances a row)."""
+    return BLOCK * 256 // max(num_embeddings, 256)
+
+
+def indices_tensor(indices: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A block of file indices (u8 or u16) as int64 on `device`."""
+    return torch.from_numpy(indices.astype(np.int64)).to(device)
 
 
 class Tally:
@@ -69,7 +83,7 @@ def decode_frame(tally: Tally, model, file_origins: np.ndarray, file_indices: np
     tally.origins_off += _origins_off(got_origins, file_origins)
     n = min(got_leaves.shape[0], file_indices.shape[0])
     for s in range(0, n, BLOCK):
-        ref = model.decode(torch.from_numpy(file_indices[s:s + BLOCK]).to(device))
+        ref = model.decode(indices_tensor(file_indices[s:s + BLOCK], device))
         got = torch.from_numpy(np.ascontiguousarray(got_leaves[s:s + BLOCK])).to(device)
         diff = (got.to(torch.float64) - ref.to(torch.float64))
         tally.max_abs = max(tally.max_abs, float(diff.abs().max()))
@@ -88,12 +102,13 @@ def encode_frame(tally: Tally, model, leaves: np.ndarray, origins: np.ndarray,
     n = min(leaves.shape[0], file_indices.shape[0])
     book = model.codebook.to(torch.float64)
     book_sq = (book * book).sum(dim=1)
-    for s in range(0, n, BLOCK):
-        x = torch.from_numpy(np.ascontiguousarray(leaves[s:s + BLOCK])).to(device)
+    block = encode_block(book.shape[0])
+    for s in range(0, n, block):
+        x = torch.from_numpy(np.ascontiguousarray(leaves[s:s + block])).to(device)
         z = model.latent(x).to(torch.float64)
         dist = (z * z).sum(dim=1, keepdim=True) - 2.0 * z @ book.T + book_sq
         if control is None:
-            got = torch.from_numpy(file_indices[s:s + BLOCK].reshape(-1).astype(np.int64)).to(device)
+            got = indices_tensor(file_indices[s:s + block].reshape(-1), device)
         else:
             got = control.encode(x).reshape(-1)
         best, best_idx = dist.min(dim=1)

@@ -31,10 +31,11 @@ import shutil  # noqa: E402
 import tempfile  # noqa: E402
 from pathlib import Path  # noqa: E402
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from portbench import checks, harness  # noqa: E402
-from portbench.reference import v3, vqmodel  # noqa: E402
+from portbench.reference import vqmodel  # noqa: E402
 
 
 def readings(cell: harness.Cell, seeds, control_seeds, device: torch.device):
@@ -59,7 +60,8 @@ def readings(cell: harness.Cell, seeds, control_seeds, device: torch.device):
                         grid = LeafGrid(name=inputs.name, origins=inputs.origins[f],
                                         leaves=inputs.leaves[f])
                         kept[f] = work / f"checked{f:02d}.vqvdb"
-                        codec.compress(grid, kept[f], format_version=3)
+                        codec.compress(grid, kept[f],
+                                       format_version=cell.traffic["format_version"])
                 kept = {f: kept[f] for f in watch}
                 yield {"seed": seed, "side": "program",
                        "numbers": harness.check(cell, inputs, kept, params, model_cfg, device)}
@@ -78,14 +80,14 @@ def control_numbers(cell, inputs, watch, params, model_cfg, control, device):
     tally = checks.Tally(inputs.direction)
     for f in watch:
         if inputs.direction == "decode":
-            _, ((_, o, idx),) = v3.read(inputs.paths[f])
-            leaves = torch.cat([control.decode(torch.from_numpy(idx[s:s + checks.BLOCK]).to(device)).cpu()
+            o, idx = harness.read_frame(inputs.paths[f])
+            leaves = torch.cat([control.decode(checks.indices_tensor(idx[s:s + checks.BLOCK], device)).cpu()
                                 for s in range(0, idx.shape[0], checks.BLOCK)])
             checks.decode_frame(tally, model, o, idx, o, leaves.numpy(), device)
         else:
             o = inputs.origins[f]
             checks.encode_frame(tally, model, inputs.leaves[f], o, o,
-                                torch.zeros((o.shape[0], 4, 4, 4), dtype=torch.uint8).numpy(),
+                                np.zeros((o.shape[0], 4, 4, 4), np.uint8),
                                 device, control=control)
     return tally.numbers()
 

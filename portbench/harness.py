@@ -5,12 +5,13 @@ The window drives one entry of `vqvdb_tpu_torch` for a traffic of kind
 "frames" (`frames.py`), a closed loop of one caller cycling through the
 sequence's frames and waiting for each:
 
-  decode   `VQCodec.decompress(path)`: a frame's v3 file -> a LeafGrid in
+  decode   `VQCodec.decompress(path)`: a frame's file -> a LeafGrid in
            host memory. The files are written in set-up by the reference's
-           v3 writer, with the frame's origins and indices drawn uniformly
-           from the seed.
-  encode   `VQCodec.compress(grid, path, format_version=3)`: a frame's host
-           LeafGrid -> a v3 file, rewritten each frame.
+           writer of the traffic's `format_version` (v3 or v4), with the
+           frame's origins and indices drawn uniformly from the seed.
+  encode   `VQCodec.compress(grid, path, format_version=...)`: a frame's
+           host LeafGrid -> a file of the traffic's version, rewritten each
+           frame.
 
 Each call is timed whole on the host clock. The last output of each checked
 frame (the longest frame and others drawn from the seed) is kept; after the
@@ -22,7 +23,6 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import importlib
 import importlib.util
 import json
 import math
@@ -40,13 +40,14 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from portbench import checks, frames, tracing
-from portbench.counts.flops import sizes_from_params
-from portbench.reference import v3, vqmodel
+from portbench import checks, frames, reference, tracing
+from portbench.counts import flops
+from portbench.reference import v3, v4, vqmodel
 
 BENCH = Path(__file__).resolve().parent
 ROOT = BENCH.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "vqvdb_tpu")
+CONTAINERS = {3: v3, 4: v4}  # the reference's writer and reader of each version
 
 
 @dataclasses.dataclass
@@ -65,13 +66,16 @@ class Cell:
 @dataclasses.dataclass
 class Record:
     """What a run measured; the per-layer metric readers (`metrics/*.py`)
-    read it."""
+    read it. `flops_per_leaf` is the plain model's count for the direction
+    (`counts/flops.py`, the encoder's from the configuration's reference
+    module)."""
 
     direction: str
     chips: int
     sizes: Dict
     value_bytes: int
     peaks: Optional[Dict]
+    flops_per_leaf: int = 0
     frames: int = 0
     leaves: int = 0
     batches: int = 0
@@ -171,9 +175,19 @@ def checked_frames(traffic: Dict, seed: int) -> List[int]:
     return sorted(rest) + [n - 1]
 
 
+def read_frame(path: Path):
+    """(origins, indices) of a one-grid frame file, by the reader of the
+    version its header states."""
+    with open(path, "rb") as f:
+        version = f.read(6)[5]
+    _, ((_, origins, indices),) = CONTAINERS[version].read(path)
+    return origins, indices
+
+
 class Inputs:
     """A run's inputs, made from the seed: the frames, and for decode their
-    v3 files (with uniform indices), in a work directory under TMPDIR."""
+    files in the traffic's version (with uniform indices: uint8 up to 256
+    codes, as ever, a wider draw beyond), in a work directory under TMPDIR."""
 
     def __init__(self, cell: Cell, seed: int, device: torch.device, work: Path):
         cfg, tr = cell.config, cell.traffic
@@ -190,11 +204,12 @@ class Inputs:
             return
         gen = torch.Generator(device=device).manual_seed((seed * 2 + 1) % 2**63)
         k = cfg["sizes"]["num_embeddings"]
+        write = CONTAINERS[tr["format_version"]].write
         for f, o in enumerate(self.origins):
             idx = torch.randint(0, k, (o.shape[0], 4, 4, 4), generator=gen, device=device,
-                                dtype=torch.uint8).cpu().numpy()
+                                dtype=torch.uint8 if k <= 256 else torch.int32).cpu().numpy()
             path = work / f"frame{f:02d}.vqvdb"
-            v3.write(path, self.name, o, idx, k)
+            write(path, self.name, o, idx if k <= 256 else idx.astype(np.uint16), k)
             self.paths.append(path)
 
 
@@ -215,8 +230,10 @@ def _run(cell, seed, seconds, trace, device, devices, work, t0) -> Dict:
     cfg, tr = cell.config, cell.traffic
     direction = tr["direction"]
     params, model_cfg = vqmodel.load(ROOT / cfg["model"])
-    if sizes_from_params(params, model_cfg) != cfg["sizes"]:
-        raise ValueError(f"{cfg['model']}'s shapes are not the sizes of configs/{cfg['name']}.json")
+    sizes = flops.sizes_from_params(params, model_cfg, cfg["reference"])
+    if sizes != cfg["sizes"]:
+        raise ValueError(f"{cfg['model']}'s shapes are not the sizes of configs/{cfg['name']}.json:"
+                         f" the artifact's are {sizes}")
     inputs = Inputs(cell, seed, device, work)
     if device.type == "cuda":  # the field's buffers are the benchmark's, not the program's
         torch.cuda.empty_cache()
@@ -243,9 +260,10 @@ def _run(cell, seed, seconds, trace, device, devices, work, t0) -> Dict:
     _sync(devices)
     codec.profiler.reset()
 
-    rec = Record(direction=direction, chips=cell.chips, sizes=cfg["sizes"],
+    rec = Record(direction=direction, chips=cell.chips, sizes=sizes,
                  value_bytes=2 if cfg["codec"]["compute_dtype"] == "bfloat16" else 4,
-                 peaks=peaks_for(torch.cuda.get_device_name(0)) if device.type == "cuda" else None)
+                 peaks=peaks_for(torch.cuda.get_device_name(0)) if device.type == "cuda" else None,
+                 flops_per_leaf=flops.flops_per_leaf(sizes, direction, cfg["reference"]))
     kept: Dict[int, object] = {}
     times: List[float] = []
     ends: List = []
@@ -350,8 +368,7 @@ def device_info(device: torch.device, devices, peak: int) -> Dict:
 
 def reference_model(params, model_cfg, cfg: Dict, device, rounding: str = "float32"):
     """The cell's plain reference (reference/<config "reference">.py)."""
-    mod = importlib.import_module(f"portbench.reference.{cfg['reference']}")
-    return mod.Model(params, model_cfg, device, rounding)
+    return reference.module(cfg["reference"]).Model(params, model_cfg, device, rounding)
 
 
 def check(cell: Cell, inputs: Inputs, kept: Dict, params, model_cfg, device) -> Dict[str, float]:
@@ -360,10 +377,10 @@ def check(cell: Cell, inputs: Inputs, kept: Dict, params, model_cfg, device) -> 
     tally = checks.Tally(inputs.direction)
     for f, out in sorted(kept.items()):
         if inputs.direction == "decode":
-            _, ((_, o, idx),) = v3.read(inputs.paths[f])
+            o, idx = read_frame(inputs.paths[f])
             checks.decode_frame(tally, model, o, idx, out.origins, out.leaves, device)
         else:
-            _, ((_, o, idx),) = v3.read(out)
+            o, idx = read_frame(out)
             checks.encode_frame(tally, model, inputs.leaves[f], inputs.origins[f], o, idx, device)
     return tally.numbers()
 

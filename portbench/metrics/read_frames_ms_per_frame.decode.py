@@ -1,4 +1,4 @@
-"""Host ms a frame spends reading its v3 file (format/vqvdb.py; decompress's host_seconds.read_frames)."""
+"""Host ms a frame spends reading its file (format/vqvdb.py; decompress's host_seconds.read_frames)."""
 
 from portbench import readers
 

@@ -1,4 +1,4 @@
-"""Host ms a frame spends writing its v3 file (format/vqvdb.py; compress's host_seconds.write_frames)."""
+"""Host ms a frame spends writing its file (format/vqvdb.py; compress's host_seconds.write_frames)."""
 
 from portbench import readers
 

@@ -7,7 +7,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from portbench.counts import flops, kernels
+from portbench.counts import kernels
 
 LATENT_ROWS = 64  # latent positions of a leaf
 
@@ -46,10 +46,12 @@ def idle_share(rec, direction: str) -> Optional[float]:
 
 def mfu(rec, direction: str) -> Optional[float]:
     """% of the cards' bf16 peak: leaves in the window times the plain
-    model's operations a leaf, over the window's seconds."""
-    if rec.direction != direction or rec.peaks is None or rec.window_s <= 0 or not rec.leaves:
+    model's operations a leaf (`rec.flops_per_leaf`), over the window's
+    seconds."""
+    if (rec.direction != direction or rec.peaks is None or rec.window_s <= 0 or not rec.leaves
+            or not rec.flops_per_leaf):
         return None
-    ops = rec.leaves * flops.flops_per_leaf(rec.sizes, direction)
+    ops = rec.leaves * rec.flops_per_leaf
     return 100.0 * ops / (rec.window_s * rec.peaks["bf16_flops_per_s"] * rec.chips)
 
 

@@ -1,4 +1,5 @@
-"""Plain layers of the VQ-VAE on NCDHW float32 tensors, and its decoder.
+"""Plain layers of the VQ-VAE on NCDHW float32 tensors, its decoder, and
+what every plain model shares (`Model`: the decode, the nearest code).
 
 Each product (a conv or a matrix product) takes its operands through
 `self.round`, which is the identity for the reference. The control
@@ -17,7 +18,7 @@ channel attention x * sigmoid(relu(mean(x) @ fc1) @ fc2).
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,9 +65,13 @@ class Layers:
         fn = ROUNDINGS[rounding]
         self.round = fn if fn is not None else (lambda t: t)
 
-    def conv(self, p: Dict, x: torch.Tensor) -> torch.Tensor:
+    def conv(self, p: Dict, x: torch.Tensor, stride: int = 1,
+             padding: Optional[int] = None) -> torch.Tensor:
+        """A conv of stride `stride`; SAME padding of its odd kernel unless
+        `padding` is given."""
         w = p["w"]
-        return F.conv3d(self.round(x), self.round(w), p.get("b"), padding=w.shape[-1] // 2)
+        pad = w.shape[-1] // 2 if padding is None else padding
+        return F.conv3d(self.round(x), self.round(w), p.get("b"), stride=stride, padding=pad)
 
     def matmul(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         return self.round(a) @ self.round(b)
@@ -110,3 +115,37 @@ class Layers:
         every code)."""
         scores = (codebook * codebook).sum(dim=1) - 2.0 * self.matmul(z, codebook.T)
         return torch.argmin(scores, dim=1)
+
+
+class Model:
+    """The plain model of one single-stage artifact on `device`, computed in
+    float32 with TF32 off (or in the control's rounding). A subclass names
+    the `encoder_arch`s it computes (`ARCHS`) and gives `latent`, its
+    encoder up to the latent rows."""
+
+    ARCHS: Tuple[str, ...] = ()
+
+    def __init__(self, params: Dict, config: Dict, device: torch.device,
+                 rounding: str = "float32"):
+        if config["encoder_arch"] not in self.ARCHS or config.get("num_quantizers", 1) != 1:
+            raise ValueError(f"not a single-stage {'/'.join(self.ARCHS)} model: {config}")
+        self.channels = config["in_channels"]
+        self.p = to_torch(params, device)
+        self.codebook = self.p["vq"]["embedding"]
+        self.layers = Layers(rounding)
+
+    def latent(self, leaves: torch.Tensor) -> torch.Tensor:
+        """Leaves [B, 8, 8, 8, C] -> latent rows [B * 64, D] in (d, h, w) order."""
+        raise NotImplementedError
+
+    def encode(self, leaves: torch.Tensor) -> torch.Tensor:
+        """Leaves [B, 8, 8, 8, C] -> indices [B, 4, 4, 4] (int64)."""
+        with exact_f32():
+            idx = self.layers.nearest(self.latent(leaves), self.codebook)
+        return idx.reshape(-1, 4, 4, 4)
+
+    def decode(self, indices: torch.Tensor) -> torch.Tensor:
+        """Indices [B, 4, 4, 4] -> leaves [B, 8, 8, 8, C] float32."""
+        with exact_f32():
+            z = self.codebook[indices.long()]
+            return self.layers.decode(self.p["decoder"], z, self.channels)

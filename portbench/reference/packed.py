@@ -6,6 +6,9 @@ channel = c*8 + a*4 + b*2 + e for the voxel offset (a, b, e)) | conv k3
 8C->W, GroupNorm(8), relu | residual block | channel attention | proj 1x1
 W->D, with W = 64 (C = 1) or 128 (C = 3). The nearest codeword of each of
 the 64 latent rows is its index. The decoder is `layers.Layers.decode`.
+
+`sizes` reads the architecture's sizes from an artifact's weight shapes,
+`encoder_flops` counts its encoder as `counts/flops.py` counts the decoder.
 """
 
 from __future__ import annotations
@@ -14,23 +17,36 @@ from typing import Dict
 
 import torch
 
-from portbench.reference.layers import Layers, exact_f32, to_torch
+from portbench.counts import flops
+from portbench.reference import layers
+from portbench.reference.layers import exact_f32
 
-ARCHS = ("packed", "packed_lite")
+
+def sizes(params: Dict, config: Dict) -> Dict:
+    """The decoder's sizes, the packed encoder's width W (`encoder_width`, the
+    projection's input, which the program folds into the score matrix) and
+    the residual block's closer kernel (3 packed, 1 packed_lite)."""
+    enc = params["encoder"]
+    return dict(flops.decoder_sizes(params, config),
+                encoder_width=int(enc["stem_conv"]["w"].shape[-1]),
+                closer_kernel=int(enc["rb"]["conv2"]["w"].shape[0]))
 
 
-class Model:
-    """The model of one artifact on `device`, computed in float32 with TF32
-    off (or in the control's rounding)."""
+def encoder_flops(s: Dict) -> int:
+    """Stem conv k3 8C->W, the residual block's k3 and closer convs, channel
+    attention, proj 1x1 W->D, the distances."""
+    p, w = flops.LATENT_POSITIONS, s["encoder_width"]
+    return (flops.conv(p, 3, 8 * s["in_channels"], w)
+            + flops.conv(p, 3, w, w) + flops.conv(p, s["closer_kernel"], w, w)
+            + flops.attention(w, s["attention_reduction"])
+            + flops.conv(p, 1, w, s["embedding_dim"])
+            + flops.distances(s))
 
-    def __init__(self, params: Dict, config: Dict, device: torch.device,
-                 rounding: str = "float32"):
-        if config["encoder_arch"] not in ARCHS or config.get("num_quantizers", 1) != 1:
-            raise ValueError(f"not a packed single-stage model: {config}")
-        self.channels = config["in_channels"]
-        self.p = to_torch(params, device)
-        self.codebook = self.p["vq"]["embedding"]
-        self.layers = Layers(rounding)
+
+class Model(layers.Model):
+    """The packed model of one artifact."""
+
+    ARCHS = ("packed", "packed_lite")
 
     @staticmethod
     def pack(x: torch.Tensor) -> torch.Tensor:
@@ -40,21 +56,8 @@ class Model:
         return x.reshape(b, 8 * c, 4, 4, 4)
 
     def latent(self, leaves: torch.Tensor) -> torch.Tensor:
-        """Leaves [B, 8, 8, 8, C] -> latent rows [B * 64, D] in (d, h, w) order."""
         enc, lay = self.p["encoder"], self.layers
         with exact_f32():
             h = lay.conv(enc["stem_conv"], self.pack(leaves.to(torch.float32)))
             z = lay.conv(enc["proj"], lay.trunk(enc, h, ["rb"]))
         return z.permute(0, 2, 3, 4, 1).reshape(-1, z.shape[1])
-
-    def encode(self, leaves: torch.Tensor) -> torch.Tensor:
-        """Leaves [B, 8, 8, 8, C] -> indices [B, 4, 4, 4] (int64)."""
-        with exact_f32():
-            idx = self.layers.nearest(self.latent(leaves), self.codebook)
-        return idx.reshape(-1, 4, 4, 4)
-
-    def decode(self, indices: torch.Tensor) -> torch.Tensor:
-        """Indices [B, 4, 4, 4] -> leaves [B, 8, 8, 8, C] float32."""
-        with exact_f32():
-            z = self.codebook[indices.long()]
-            return self.layers.decode(self.p["decoder"], z, self.channels)

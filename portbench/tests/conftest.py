@@ -3,6 +3,7 @@ a size the CPU runs in seconds (every width as configured; fewer, smaller
 frames on a smaller domain, 64-leaf batches), and a helper that runs it."""
 
 import time
+from pathlib import Path
 
 import pytest
 import torch
@@ -13,10 +14,12 @@ TINY_TRAFFIC = {"frames": 3, "first_leaves": 40, "step_leaves": 30, "domain": [6
                 "blobs": 6, "sigma": [4.0, 10.0], "checked_frames": 2}
 
 
-def tiny_cell(name: str, mesh: int = 0) -> harness.Cell:
-    """The cell `name` at a tiny size; with `mesh`, its codec on a mesh of
-    that many CPU entries (the data-parallel path of several cards)."""
-    cell = harness.load_cell(name)
+def tiny_cell(name: str, mesh: int = 0, manifest: Path = harness.ROOT / "BENCHMARK.json",
+              bench: Path = harness.BENCH) -> harness.Cell:
+    """The cell `name` (of `manifest`, its files under `bench`) at a tiny
+    size; with `mesh`, its codec on a mesh of that many CPU entries (the
+    data-parallel path of several cards)."""
+    cell = harness.load_cell(name, manifest, bench)
     if mesh:
         cell.config = dict(cell.config, mesh={"cards": mesh})
     cell.config = dict(cell.config, codec=dict(cell.config["codec"], batch_size=64))

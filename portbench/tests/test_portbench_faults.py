@@ -8,8 +8,10 @@ the CPU, with the cell's own limits, and plants one fault in the program:
               of each frame hands back what its buffer held before (its
               state unchanged)
   half        half of each batch left out: its rows come back as zeros
-  exchange    on a mesh, the shards of every device but the first never
-              gathered into the batch (the exchange between cards left out)
+  exchange    on a mesh, the rows of every device but the first never
+              copied back (the exchange between cards left out): a shard
+              other than the first skips its readback, into the caller's
+              grid or into its slot
   altered     one answer altered where it is produced: a leaf's decoded
               values flipped, or a leaf's codes moved by half the codebook
 """
@@ -49,12 +51,25 @@ def _half(monkeypatch):
 
 
 def _exchange(monkeypatch):
-    orig = VQCodec._collect
+    """Every stage's slots but the first (the other devices' shards) are
+    marked, and a marked slot's readback copies nothing: its rows keep what
+    their memory held."""
+    slots_for, read_back = VQCodec._slots_for, VQCodec._read_back
 
-    def collect(item):
-        stage, live, tag, n = item
-        return orig(item if stage.whole is None else (stage, live[:1], tag, n))
-    monkeypatch.setattr(VQCodec, "_collect", staticmethod(collect))
+    def marked(self, kind):
+        stages = slots_for(self, kind)
+        for stage in stages:
+            for slot in stage.slots[1:]:
+                slot.skip_read_back = True
+        return stages
+
+    def skipping(slot, results):
+        if not getattr(slot, "skip_read_back", False):
+            read_back(slot, results)
+        elif slot.done is not None:
+            slot.done.record()
+    monkeypatch.setattr(VQCodec, "_slots_for", marked)
+    monkeypatch.setattr(VQCodec, "_read_back", staticmethod(skipping))
 
 
 def _altered(monkeypatch):

@@ -1,6 +1,7 @@
 """The harness: cells, traffic, limits and metrics found by name; the
 manifest's contract; the result line; the import check."""
 
+import hashlib
 import importlib.util
 import json
 import re
@@ -10,6 +11,7 @@ import sys
 import types
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -91,6 +93,115 @@ def test_a_cell_and_a_metric_can_be_added_as_files_alone(tmp_path):
     rec = harness.Record(direction="encode", chips=1, sizes=cell.config["sizes"], value_bytes=2,
                          peaks=None, frames=4, leaves=100)
     assert harness.metric_reader("leaves_per_frame", bench)(rec) == 25.0
+
+
+def _add_cells(tmp_path):
+    """A copy of the benchmark under `tmp_path`, grown by new files and
+    appended manifest entries alone, as a `model_config` change adds a cell:
+    upstream's strided-conv encoder (`models/scalar_reference.vqmodel`) on
+    `frames-encode`, and a K = 512 artifact drawn from a seed and written
+    with the port's `save_model`, decoded and encoded on v4 traffic. Returns
+    (manifest, bench dir); the copy's artifacts are under `tmp_path`/models."""
+    from vqvdb_tpu_torch.core.artifact import save_model
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.models.vqvae import init_vqvae_params
+
+    from portbench.counts import flops
+    from portbench.reference import vqmodel
+
+    bench = tmp_path / "portbench"
+    shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
+    (tmp_path / "models").mkdir()
+    shutil.copy(ROOT / "models" / "scalar_reference.vqmodel", tmp_path / "models")
+    cfg = ModelConfig(in_channels=1, embedding_dim=128, num_embeddings=512, encoder_arch="packed")
+    save_model(tmp_path / "models" / "scalar_k512.vqmodel",
+               init_vqvae_params(torch.Generator().manual_seed(2**31 + 7), cfg), cfg)
+    m = json.loads(json.dumps(MANIFEST))
+    scalar = json.loads((BENCH / "configs" / "scalar.json").read_text())
+    for name, model, ref in (("scalar_reference", "scalar_reference.vqmodel", "reference"),
+                             ("scalar_k512", "scalar_k512.vqmodel", "packed")):
+        params, model_cfg = vqmodel.load(tmp_path / "models" / model)
+        config = dict(scalar, name=name, model=f"models/{model}", reference=ref,
+                      sizes=flops.sizes_from_params(params, model_cfg, ref))
+        (bench / "configs" / f"{name}.json").write_text(json.dumps(config))
+        m["configs"].append({"name": name, "source": scalar["source"],
+                             "file": f"portbench/configs/{name}.json", "reduced": [],
+                             "why": "added by files alone"})
+    for direction in ("decode", "encode"):
+        traffic = json.loads((BENCH / "traffic" / f"frames-{direction}.json").read_text())
+        (bench / "traffic" / f"frames-{direction}-v4.json").write_text(
+            json.dumps(dict(traffic, format_version=4)))
+    cells = {"scalar_reference.encode_frames": ("scalar_reference", "frames-encode"),
+             "scalar_k512.decode_frames": ("scalar_k512", "frames-decode-v4"),
+             "scalar_k512.encode_frames": ("scalar_k512", "frames-encode-v4")}
+    for name, (config, traffic) in cells.items():
+        direction = name.split(".")[1].split("_")[0]
+        m["workloads"].append({"name": name, "config": config, "traffic": traffic, "chips": 1,
+                               "why": "added by files alone"})
+        for metric in m["end_to_end"] + m["per_layer"]:
+            if f"scalar.{direction}_frames" in metric.get("workloads", []):
+                metric["workloads"].append(name)
+        shutil.copy(bench / "limits" / f"scalar.{direction}_frames.json",
+                    bench / "limits" / f"{name}.json")
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(m))
+    return tmp_path / "BENCHMARK.json", bench
+
+
+def _shift_the_files_codes(monkeypatch):
+    """Each code the program writes to a frame file, or reads from one, moved
+    to the next codeword (mod K)."""
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader, VqvdbWriter
+
+    write, read = VqvdbWriter.write_batch, VqvdbReader.next_batch_residual
+
+    def shifted(idx, k):
+        return ((idx.astype(np.int64) + 1) % k).astype(idx.dtype)
+
+    def write_batch(self, indices, origins, *rest):
+        idx = np.asarray(indices)
+        return write(self, shifted(idx, self._shared_num_embeddings), origins, *rest)
+
+    def next_batch_residual(self, max_batch):
+        idx, *rest = read(self, max_batch)
+        return (shifted(idx, self.num_embeddings), *rest)
+    monkeypatch.setattr(VqvdbWriter, "write_batch", write_batch)
+    monkeypatch.setattr(VqvdbReader, "next_batch_residual", next_batch_residual)
+
+
+@pytest.mark.parametrize("shift", [False, True], ids=["sound", "codes_shifted"])
+@pytest.mark.parametrize("name", ["scalar_reference.encode_frames", "scalar_k512.decode_frames",
+                                  "scalar_k512.encode_frames"])
+def test_a_cell_added_as_files_alone_runs_whole(tmp_path, monkeypatch, name, shift):
+    manifest, bench = _add_cells(tmp_path)
+    cell = tiny_cell(name, manifest=manifest, bench=bench)
+    assert cell.traffic["format_version"] == (4 if "k512" in name else 3)
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    if shift:
+        _shift_the_files_codes(monkeypatch)
+    result = run_tiny(cell)
+    assert result["failed"] == 0 and result["attempted"] > 0
+    assert result["correct"] is not shift, result["check"]
+
+
+def test_decode_inputs_are_the_parents_bit_for_bit(tmp_path):
+    # sha256 of the three frame files of the tiny flagship decode cell at this
+    # seed, as the benchmark wrote them before v4 inputs existed
+    inputs = harness.Inputs(tiny_cell("scalar.decode_frames"), 2**31 + 11, torch.device("cpu"),
+                            tmp_path)
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in inputs.paths)).hexdigest()
+    assert [p.stat().st_size for p in inputs.paths] == [3137, 5417, 7697]
+    assert digest == "0c1eb1d42c9900b19a33af638badf01ea919c1c001a5c43597a9c29d996157e4"
+
+
+def test_decode_inputs_beyond_256_codes_are_v4_with_u16_codes(tmp_path):
+    manifest, bench = _add_cells(tmp_path)
+    cell = tiny_cell("scalar_k512.decode_frames", manifest=manifest, bench=bench)
+    inputs = harness.Inputs(cell, 2**31 + 11, torch.device("cpu"), tmp_path)
+    for path in inputs.paths:
+        assert path.read_bytes()[5] == 4
+        _, idx = harness.read_frame(path)
+        assert idx.dtype == np.uint16 and idx.max() < 512
+    assert max(int(harness.read_frame(p)[1].max()) for p in inputs.paths) > 255
 
 
 @pytest.mark.parametrize("trace", [False, True])
