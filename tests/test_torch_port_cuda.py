@@ -1097,3 +1097,41 @@ def test_card_decompress_reads_back_into_pinned_caller_memory(tmp_path):
     for a, b in zip(again, third):
         assert not np.shares_memory(a.leaves, b.leaves)
         assert a.leaves.tobytes() == b.leaves.tobytes()
+
+
+@pytest.mark.cuda
+def test_card_encode_fine_is_timed_on_the_card_only_under_a_profiler(tmp_path):
+    """upstream's vec3 model at its widths (`models/vec3_upstream.vqmodel`,
+    the codec's defaults): a compress of 9,000 leaves (three batches) under
+    `torch.profiler` counts `device/encode_fine` once a batch, and the
+    trace holds the score kernel's 16 code tiles a batch; the same compress
+    untraced counts no such stage. The file holds u16 indices equal to
+    `encode_leaves`'."""
+    from test_torch_port_spans import frame
+
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
+
+    _card()
+    codec = api.make_codec(_MODELS / "vec3_upstream.vqmodel", device="cuda")
+    grid, path = frame(9000, 3), tmp_path / "f.vqvdb"
+    codec.compress(grid, path, format_version=4)
+    torch.cuda.synchronize()
+    assert "device/encode_fine" not in codec.profiler.report()
+    codec.profiler.reset()
+    acts = (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+    launches = q.fused_score_argmin.launches
+    with torch.profiler.profile(activities=list(acts)) as prof:
+        codec.compress(grid, path, format_version=4)
+    got = codec.profiler.report()
+    fine = got["device/encode_fine"]
+    assert fine["count"] == 3 == got["device/dispatch"]["count"], got
+    assert 0.0 < fine["mean_ms"] < 1e3 * 10, fine
+    tiles = [e for e in prof.profiler.kineto_results.events()
+             if e.device_type() == torch.autograd.DeviceType.CUDA
+             and "score_argmin_kernel" in e.name()]
+    assert len(tiles) == 3 * 16 == q.fused_score_argmin.launches - launches
+    with VqvdbReader(path) as r:
+        _, idx, _ = r.read_grid()
+    assert r.version == 4 and idx.dtype == np.uint16 and idx.max() > 255
+    assert np.array_equal(idx, codec.encode_leaves(grid.leaves))

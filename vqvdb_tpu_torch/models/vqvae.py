@@ -55,7 +55,7 @@ from vqvdb_tpu_torch.models.quantizer import (
 from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
 from vqvdb_tpu_torch.ops.packed import space_to_channel
 from vqvdb_tpu_torch.utils.errors import ConfigError
-from vqvdb_tpu_torch.utils.profiler import span
+from vqvdb_tpu_torch.utils.profiler import device_stage, span
 
 Params = Dict[str, Any]
 
@@ -102,17 +102,19 @@ def _encoder_features_packed(params: Params, x: torch.Tensor) -> torch.Tensor:
 def _reference_pre(params: Params, x: torch.Tensor, cfg: ModelConfig,
                    fuse_rb16: bool = False) -> torch.Tensor:
     """The reference encoders' stage on the 8^3 grid: conv, GroupNorm (4
-    groups scalar, 8 vec3), relu, residual block."""
-    with span("encode/pre_conv"):
-        h = blocks.conv3d(params["pre_conv"], x, padding=1)
-        pre_groups = 4 if cfg.variant == "scalar" else 8
-        h = torch.relu(blocks.group_norm(params["pre_gn"], h, pre_groups))
-    with span("encode/pre_rb"):
-        if fuse_rb16:
-            # The kernel reads a dense NDHWC buffer; a no-op when GroupNorm
-            # already handed one over.
-            return residual_block_fused(params["pre_rb"], h.contiguous())
-        return blocks.residual_block(params["pre_rb"], h)
+    groups scalar, 8 vec3), relu, residual block; the device stage
+    `device/encode_fine` in a traced codec batch on the card."""
+    with device_stage("device/encode_fine", x):
+        with span("encode/pre_conv"):
+            h = blocks.conv3d(params["pre_conv"], x, padding=1)
+            pre_groups = 4 if cfg.variant == "scalar" else 8
+            h = torch.relu(blocks.group_norm(params["pre_gn"], h, pre_groups))
+        with span("encode/pre_rb"):
+            if fuse_rb16:
+                # The kernel reads a dense NDHWC buffer; a no-op when GroupNorm
+                # already handed one over.
+                return residual_block_fused(params["pre_rb"], h.contiguous())
+            return blocks.residual_block(params["pre_rb"], h)
 
 
 def _reference_post(params: Params, h: torch.Tensor,

@@ -51,9 +51,11 @@ readback enqueued), `device/readback_wait` (the host waiting for a batch's
 results, `_collect`) and, in `decompress`, `host/scatter` (what is left of
 placing a batch in the output grid once the device copies its rows there:
 the grid allocated at its first batch, the batch's origins copied in, and
-the grids assembled at the end). Under a running
-`torch.profiler` each stage is also a trace range, and spans name the rest:
-`host/file` (a file opened or closed), `host/read_frames`,
+the grids assembled at the end). One stage is timed on the card, and only
+in a traced run: `device/encode_fine`, the reference encoders' 8^3 stage,
+whose events `_collect` reads once the batch's results are in. Under a
+running `torch.profiler` each stage is also a trace range, and spans name
+the rest: `host/file` (a file opened or closed), `host/read_frames`,
 `host/write_frames`, `device/read_back` and the parts of each device step
 (`decode/*`, `encode/*`, `rb/*`).
 
@@ -108,7 +110,7 @@ from vqvdb_tpu_torch.parallel.mesh import Mesh, make_sharded_encode, replicate, 
 from vqvdb_tpu_torch.runtime.native_io import copy_into
 from vqvdb_tpu_torch.runtime.residual import RESIDUAL_MODES, apply_residual, quantize_residual
 from vqvdb_tpu_torch.utils.errors import ModelMismatchError
-from vqvdb_tpu_torch.utils.profiler import Profiler, span
+from vqvdb_tpu_torch.utils.profiler import DeviceTimes, Profiler, span
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
 
 PIPELINE_DEPTH = 2
@@ -156,6 +158,9 @@ class _Stage:
         # The caller's destination of the batch in flight (its n rows per
         # output), or None; `_collect` hands it back and lets it go.
         self.into: Optional[List[torch.Tensor]] = None
+        # The device stages of the batch in flight (a traced run's
+        # `DeviceTimes`), or None; `_collect` settles them.
+        self.timed: Optional[DeviceTimes] = None
 
 
 class VQCodec:
@@ -433,12 +438,13 @@ class VQCodec:
                 # devices each read their shard's rows back into their part.
                 slot.into = (stage.into if stage.whole is None or stage.into is None
                              else [d[r0:r0 + rows] for d in stage.into])
-            with self.profiler("device/dispatch"):
+            with self.profiler("device/dispatch"), self.profiler.device_times() as timed:
                 for j, slot, _, _ in live:
                     with (mesh.stream(j) if mesh is not None else contextlib.nullcontext()):
                         dev = slot.device
                         self._read_back(slot, self._steps(
                             kind, slot.inp.to(dev, non_blocking=True)))
+            stage.timed = timed
             pending.append((stage, live, tag, n))
             if len(pending) >= PIPELINE_DEPTH:
                 yield collect(pending.popleft())
@@ -465,6 +471,9 @@ class VQCodec:
         for _, slot, _, _ in live:
             if slot.done is not None:
                 slot.done.synchronize()
+        if stage.timed is not None:  # its events came before `done`
+            stage.timed.settle()
+            stage.timed = None
         if stage.into is not None:  # the rows are in the caller's memory
             got, stage.into = stage.into, None
             for _, slot, _, _ in live:

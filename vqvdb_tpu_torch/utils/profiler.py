@@ -12,6 +12,14 @@ is (`_RecordFunctionFast`): `torch.profiler.record_function`'s user scope
 would also be mirrored onto the card's timeline, as a span over the kernels
 launched inside it, which a reader of device time would count as work.
 
+A device stage (`device_stage(name, like)`) is timed on the card instead,
+and opens no range: while torch's profiler records, a pipeline's dispatch
+of a batch gathers (`Profiler.device_times`) the two CUDA events that each
+device stage records on the current stream around its section, and their
+time is added under the stage's name once the batch's results are in
+(`DeviceTimes.settle`), so it adds no synchronisation. Otherwise, and on
+the CPU, a device stage does nothing.
+
 The codec's stages (`runtime/codec.py`, per batch unless said):
 
   init/weights          the weights onto the device (once, in the constructor)
@@ -30,6 +38,11 @@ The codec's stages (`runtime/codec.py`, per batch unless said):
   host/scatter          `decompress`: the output grid allocated, a batch's rows
                         and origins copied into it, the grid closed (once more
                         per call)
+  device/encode_fine    a device stage, traced runs on the card only: the
+                        reference encoders' 8^3 stage (`models/vqvae.py`
+                        `_reference_pre`: the pre conv, GroupNorm, relu and the
+                        pre residual block), one count a device step (each
+                        shard's on a mesh), read in `_collect`
 
 Its spans: `host/file` (a `.vqvdb` file opened, or closed after writing),
 `host/read_frames` (the reader's frames of a batch), `host/write_frames`
@@ -52,18 +65,80 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import ContextManager, Dict, Iterator
+from typing import ContextManager, Dict, Iterator, List, Tuple
 
+import torch
 from torch._C._profiler import _RecordFunctionFast
 from torch.autograd import _profiler_enabled
 
 _NO_RANGE = contextlib.nullcontext()
+# The DeviceTimes that this thread's device stages record into, or None: the
+# model's functions, which open the stages, are handed no profiler.
+_gathering = threading.local()
 
 
 def span(name: str) -> ContextManager:
     """A trace range named `name` while torch's profiler records in this
     thread; otherwise a context that does nothing."""
     return _RecordFunctionFast(name) if _profiler_enabled() else _NO_RANGE
+
+
+class _DeviceStage:
+    """Two CUDA events recorded on the current stream around a section."""
+
+    __slots__ = ("name", "pairs", "start")
+
+    def __init__(self, name: str, pairs: list) -> None:
+        self.name, self.pairs = name, pairs
+
+    def __enter__(self) -> None:
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+
+    def __exit__(self, *exc) -> bool:
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.pairs.append((self.name, self.start, end))
+        return False
+
+
+def device_stage(name: str, like: torch.Tensor) -> ContextManager:
+    """A stage named `name` timed on the card, around work on `like`'s
+    device: its events join the batch whose dispatch this thread is
+    gathering (`Profiler.device_times`); outside one, or with `like` off the
+    card, a context that does nothing."""
+    times = getattr(_gathering, "times", None)
+    if times is None or not like.is_cuda:
+        return _NO_RANGE
+    return _DeviceStage(name, times.pairs)
+
+
+class DeviceTimes:
+    """The event pairs that this thread's device stages record while it is
+    entered (one batch's dispatch); `settle` adds their times to the
+    profiler once they have completed."""
+
+    __slots__ = ("profiler", "pairs")
+
+    def __init__(self, profiler: "Profiler") -> None:
+        self.profiler = profiler
+        self.pairs: List[Tuple[str, torch.cuda.Event, torch.cuda.Event]] = []
+
+    def __enter__(self) -> "DeviceTimes":
+        _gathering.times = self
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        _gathering.times = None
+        return False
+
+    def settle(self) -> None:
+        """Add each pair's time under its stage's name. Call it once the
+        batch's results are in: the events then have completed, and reading
+        them waits for nothing."""
+        for name, start, end in self.pairs:
+            self.profiler.add(name, start.elapsed_time(end) / 1e3)
+        self.pairs.clear()
 
 
 class Profiler:
@@ -82,10 +157,19 @@ class Profiler:
             with span(name):
                 yield
         finally:
-            dt = time.perf_counter() - t0
-            with self._lock:
-                self._total[name] += dt
-                self._count[name] += 1
+            self.add(name, time.perf_counter() - t0)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Count one run of stage `name` that took `seconds`."""
+        with self._lock:
+            self._total[name] += seconds
+            self._count[name] += 1
+
+    def device_times(self) -> ContextManager:
+        """While torch's profiler records in this thread: a `DeviceTimes`
+        that gathers the device stages recorded while it is entered;
+        otherwise a context that gives None and does nothing."""
+        return DeviceTimes(self) if _profiler_enabled() else _NO_RANGE
 
     def report(self) -> Dict[str, Dict[str, float]]:
         with self._lock:
