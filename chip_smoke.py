@@ -35,6 +35,16 @@ Phases, in this order; any failure raises and the script exits non-zero:
      version, bit-equal on repeat, on leaves with NaN / inf planted, and
      timed with nvidia-smi sampling clocks and power beside the loop), and
      score-argmin at feature widths 32 (reference arch) and 128 (vec3).
+  7b. GroupNorm + affine + ReLU (`csrc/group_norm.cu`): the kernel at
+     [4096, 8^3, 64], [4096, 4^3, 128], [4096, 4^3, 64] and [4096, 8^3, 16]
+     (4 groups) bf16 against its plain version (within one unit in the last
+     place, equal on >= 99% of values; the plain version's NaN / inf pattern
+     on planted leaves), kernel, plain, byte-bound and library
+     (`F.group_norm` + relu) times; and its launches in the codec's stats,
+     also counted by shape: 5 per vec3 decode batch, 3 per vec3 encode
+     batch, 7 per batch of upstream's vec3 encoder (`vec3_upstream`), 3 per
+     reference-arch encode batch. Every phase's launch checks count the
+     kernel too (`gn_steps`: one launch per GroupNorm of a step).
   8. unfused path: fuse_proj_quantize=False (the nearest-code kernel) in
      f32, counters reset around it; its indices must equal the fused f32
      path's except on near-ties.
@@ -507,11 +517,30 @@ def log_kernel_rows(rows):
 def _wrappers():
     from vqvdb_tpu_torch.ops import quantize as q
     from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
 
     return {"dequantize": q.fused_dequantize,
             "score_argmin": q.fused_score_argmin,
             "nearest_indices": q.fused_nearest_indices,
-            "fused_rb": residual_block_fused}
+            "fused_rb": residual_block_fused,
+            "group_norm": group_norm_relu_fused}
+
+
+def gn_steps(codec):
+    """(encode, decode): the GroupNorm kernel's launches in one encode and
+    one decode step of `codec`, read off its params: one per GroupNorm
+    ({"scale", "bias"}) of its encoder and of its decoder, but the two of
+    the 16-channel block where the fused residual-block kernel takes it."""
+    def count(tree):
+        if not isinstance(tree, dict):
+            return 0
+        if set(tree) == {"scale", "bias"}:
+            return 1
+        return sum(count(v) for v in tree.values())
+
+    fused = (codec._folded_down is not None and codec.ccfg.fuse_rb16
+             and codec.mcfg.variant == "scalar")
+    return count(codec.params["encoder"]) - 2 * fused, count(codec.params["decoder"])
 
 
 def reset_launches():
@@ -538,6 +567,11 @@ def round_trip(label, codec, grid, workdir: Path, min_psnr: float):
     dgrids, dstats = codec.decompress(path)
     dec = read_launches()
     out = dgrids[0]
+    if (cstats["group_norm_launches"], dstats["group_norm_launches"]) != (
+            enc["group_norm"], dec["group_norm"]):
+        raise AssertionError(f"{label}: the codec's group_norm_launches "
+                             f"{cstats['group_norm_launches']}, {dstats['group_norm_launches']} "
+                             f"are not its counter's {enc['group_norm']}, {dec['group_norm']}")
     if out.leaves.shape != grid.leaves.shape or not np.isfinite(out.leaves).all():
         raise AssertionError(f"{label}: decoded leaves are not finite / of the input's shape")
     if not np.array_equal(out.origins, grid.origins):
@@ -576,8 +610,11 @@ def main_path(tree, cfg, grid, workdir: Path):
 
     result = round_trip("main", codec, grid, workdir, MIN_PSNR_DB)
     n = result["batches"]
-    expect_launches("main path encode", result["encode_launches"], score_argmin=n)
-    expect_launches("main path decode", result["decode_launches"], dequantize=n)
+    ge, gd = gn_steps(codec)
+    expect_launches("main path encode", result["encode_launches"], score_argmin=n,
+                    group_norm=ge * n)
+    expect_launches("main path decode", result["decode_launches"], dequantize=n,
+                    group_norm=gd * n)
     return codec, result
 
 
@@ -640,15 +677,19 @@ def reference_path(grid, workdir: Path):
 
     res = round_trip("reference", fused, grid, workdir, MIN_PSNR_DB)
     n = res["batches"]
-    expect_launches("reference encode", res["encode_launches"], fused_rb=n, score_argmin=n)
-    expect_launches("reference decode", res["decode_launches"], dequantize=n)
+    ge, gd = gn_steps(fused)
+    expect_launches("reference encode", res["encode_launches"], fused_rb=n, score_argmin=n,
+                    group_norm=ge * n)
+    expect_launches("reference decode", res["decode_launches"], dequantize=n,
+                    group_norm=gd * n)
     # A/B in turns on the same card: fused (above), eager, eager, fused.
     rates = {"fused": [res["compress_leaves_per_s"]], "eager": []}
     for name, codec in (("eager", eager), ("eager", eager), ("fused", fused)):
         reset_launches()
         stats = codec.compress(grid, workdir / "ab.vqvdb")
         expect_launches(f"reference {name} compress", read_launches(),
-                        fused_rb=n if name == "fused" else 0, score_argmin=n)
+                        fused_rb=n if name == "fused" else 0, score_argmin=n,
+                        group_norm=gn_steps(codec)[0] * n)
         rates[name].append(stats["leaves_per_sec"])
     res["compress_leaves_per_s_fused_rb16"] = rates["fused"]
     res["compress_leaves_per_s_eager_rb16"] = rates["eager"]
@@ -678,12 +719,15 @@ def side_paths(seed: int, n_leaves: int, grid, workdir: Path):
         torch.cuda.synchronize()
         res = round_trip(label, codec, data, workdir, floor)
         n, s = res["batches"], cfg.num_quantizers
+        ge, gd = gn_steps(codec)
         if s > 1:
             expect_launches(f"{label} encode", res["encode_launches"],
-                            nearest_indices=s * n, dequantize=s * n)
+                            nearest_indices=s * n, dequantize=s * n, group_norm=ge * n)
         else:
-            expect_launches(f"{label} encode", res["encode_launches"], score_argmin=n)
-        expect_launches(f"{label} decode", res["decode_launches"], dequantize=s * n)
+            expect_launches(f"{label} encode", res["encode_launches"], score_argmin=n,
+                            group_norm=ge * n)
+        expect_launches(f"{label} decode", res["decode_launches"], dequantize=s * n,
+                        group_norm=gd * n)
         out[label] = res
         codecs[label] = (tree, cfg, codec)
     return codecs, vgrid, out
@@ -828,7 +872,7 @@ def side_kernel_phase(ref_codec, grid, vec_codec, vgrid):
         for dtype in (torch.bfloat16, torch.float32):
             # what pre_conv + pre_gn hand the block on the encode path
             h = blocks.conv3d(enc["pre_conv"], leaves.to(dtype), padding=1)
-            h = torch.relu(blocks.group_norm(enc["pre_gn"], h, 4))
+            h = blocks.group_norm_relu(enc["pre_gn"], h, 4)
             dense = h.is_contiguous()
             h = h.contiguous()
             if tuple(h.shape) != (4096, 8, 8, 8, 16):
@@ -874,6 +918,155 @@ def side_kernel_phase(ref_codec, grid, vec_codec, vgrid):
             rows.append(score_argmin_row(name, h_f32.reshape(-1, f),
                                          h_bf16.reshape(-1, f), *codec._score_mc))
     return rows
+
+
+# The GroupNorm kernel's rows: upstream's vec3 encoder's 8^3 stage, the
+# vec3 models, the flagship (phase 3) and the reference arch's first
+# GroupNorm (which feeds phase 7's fused_rb check).
+GN_SHAPES = {"group_norm_relu_8x64": ((8, 8, 8), 64, 8),
+             "group_norm_relu_4x128": ((4, 4, 4), 128, 8),
+             "group_norm_relu_4x64": ((4, 4, 4), 64, 8),
+             "group_norm_relu_8x16": ((8, 8, 8), 16, 4)}
+
+
+def _ulp(t):
+    """One unit in the last place of each value of t (bf16 or f32) at
+    max(|t|, 1), as f32: GroupNorm's outputs are normalised, so a value
+    near 0 carries the rounding of its group's statistics."""
+    import torch
+
+    mag = t.float().abs().clamp(min=1.0)
+    return torch.exp2(torch.floor(torch.log2(mag)) - (7 if t.dtype == torch.bfloat16 else 23))
+
+
+def group_norm_rows(seed: int):
+    """The GroupNorm kernel at each shape of `GN_SHAPES` on 4,096
+    conv-output-like leaves in bf16: against its plain version, on planted
+    NaN / inf leaves, and timed with the plain version and `F.group_norm` +
+    relu (on the NCDHW view; the port never calls it) beside the byte bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused, group_norm_relu_plain
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = []
+    for name, (spatial, c, groups) in GN_SHAPES.items():
+        shape = (4096,) + spatial + (c,)
+        x = (torch.randn(shape, generator=gen, device="cuda")
+             * (0.5 + torch.rand(c, generator=gen, device="cuda"))
+             + torch.rand(c, generator=gen, device="cuda") - 0.5).to(torch.bfloat16)
+        params = {"scale": 1 + 0.2 * torch.randn(c, generator=gen, device="cuda"),
+                  "bias": 0.2 * torch.randn(c, generator=gen, device="cuda")}
+        with torch.inference_mode():
+            launches = group_norm_relu_fused.launches
+            got = group_norm_relu_fused(params, x, groups)
+            torch.cuda.synchronize()
+            if group_norm_relu_fused.launches != launches + 1:
+                raise AssertionError(f"{name}: {group_norm_relu_fused.launches - launches} "
+                                     "launches for one call")
+            want = group_norm_relu_plain(params, x, groups)
+            diff = (got.float() - want.float()).abs()
+            equal = (got == want).float().mean().item()
+            if not (diff <= _ulp(want)).all() or equal < 0.99:
+                raise AssertionError(f"{name}: max diff {diff.max().item()}, equal share "
+                                     f"{equal}")
+            if not torch.equal(group_norm_relu_fused(params, x, groups), got):
+                raise AssertionError(f"{name}: a second launch gave other bits")
+            bad = x[:8].clone()
+            bad[0, 0, 0, 0, 0] = float("nan")
+            bad[1, 1, 2, 3, c - 1] = float("inf")
+            bad[2, 0, 1, 0, 3] = float("-inf")
+            k, p = group_norm_relu_fused(params, bad, groups), group_norm_relu_plain(params, bad,
+                                                                                     groups)
+            if not (torch.equal(k.isnan(), p.isnan()) and torch.equal(k.isinf(), p.isinf())):
+                raise AssertionError(f"{name}: non-finite pattern differs from plain")
+            w, b = params["scale"].to(x.dtype), params["bias"].to(x.dtype)
+            ncdhw = x.permute(0, 4, 1, 2, 3)
+            rows.append(dict(
+                name=name, route="cuda", source="vqvdb_tpu_torch/csrc/group_norm.cu",
+                replaces="none (XLA fuses GroupNorm on the TPU)",
+                max_abs_err=diff.max().item(), equal_share=equal,
+                ms=cuda_ms(lambda: group_norm_relu_fused(params, x, groups), graph=True),
+                plain_ms=cuda_ms(lambda: group_norm_relu_plain(params, x, groups),
+                                 iters=10, warmup=2),
+                bound_ms=2 * x.numel() * x.element_size() / HBM_BYTES_PER_S * 1e3,
+                bound_by="bytes",
+                library_ms=cuda_ms(lambda: torch.relu(F.group_norm(ncdhw, groups, w, b)),
+                                   iters=10, warmup=2),
+                check=f"bf16 {shape} in {groups} groups: within one ulp of plain, "
+                      f"{equal:.4%} equal, bit-equal on repeat, NaN / inf leaves as plain"))
+    return rows
+
+
+def _gn_by_shape(counter, run):
+    """run(); the GroupNorm kernel's launches meanwhile, counted into
+    `counter` by (voxels, channels, groups) of the call's input."""
+    from vqvdb_tpu_torch.models import blocks
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
+
+    inner = blocks.group_norm_relu
+
+    def counted(params, x, groups):
+        before = group_norm_relu_fused.launches
+        out = inner(params, x, groups)
+        key = f"{x[0, ..., 0].numel()}x{x.shape[-1]}/{groups}"
+        counter[key] = counter.get(key, 0) + group_norm_relu_fused.launches - before
+        return out
+
+    blocks.group_norm_relu = counted
+    try:
+        return run()
+    finally:
+        blocks.group_norm_relu = inner
+
+
+def group_norm_phase(vec_codec, vgrid, ref_codec, grid, workdir: Path):
+    """Phase 7b: the kernel rows, and the kernel's launches in the codec's
+    stats on the vec3 round trip, on upstream's vec3 encoder (seeded
+    weights, `models/vec3_upstream.vqmodel`) and on the reference arch's
+    encode, counted by shape as well; 4,096-leaf batches."""
+    import torch
+
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
+
+    batches = -(-vgrid.num_leaves // vec_codec.ccfg.batch_size)
+    ref_grid = grid_subset(grid, 2 * ref_codec.ccfg.batch_size + 77)
+    ref_batches = -(-ref_grid.num_leaves // ref_codec.ccfg.batch_size)
+    shapes = {k: {} for k in ("vec3_encode", "vec3_decode", "vec3_upstream_encode",
+                              "reference_encode")}
+    cstats = _gn_by_shape(shapes["vec3_encode"],
+                          lambda: vec_codec.compress(vgrid, workdir / "gn_vec3.vqvdb"))
+    _, dstats = _gn_by_shape(shapes["vec3_decode"],
+                             lambda: vec_codec.decompress(workdir / "gn_vec3.vqvdb"))
+    tree, cfg = load_model(REPO / "models" / "vec3_upstream.vqmodel")
+    upstream = VQCodec(tree, cfg, CodecConfig(), device="cuda")
+    ustats = _gn_by_shape(shapes["vec3_upstream_encode"], lambda: upstream.compress(
+        vgrid, workdir / "gn_vec3_upstream.vqvdb"))
+    rstats = _gn_by_shape(shapes["reference_encode"], lambda: ref_codec.compress(
+        ref_grid, workdir / "gn_reference.vqvdb"))
+    res = {"vec3_encode": cstats["group_norm_launches"],
+           "vec3_decode": dstats["group_norm_launches"],
+           "vec3_upstream_encode": ustats["group_norm_launches"],
+           "reference_encode": rstats["group_norm_launches"],
+           "batches": batches, "reference_batches": ref_batches}
+    want = {"vec3_encode": gn_steps(vec_codec)[0] * batches,
+            "vec3_decode": gn_steps(vec_codec)[1] * batches,
+            "vec3_upstream_encode": gn_steps(upstream)[0] * batches,
+            "reference_encode": gn_steps(ref_codec)[0] * ref_batches,
+            "batches": batches, "reference_batches": ref_batches}
+    del upstream
+    torch.cuda.empty_cache()
+    if res != want:
+        raise AssertionError(f"GroupNorm launches {res}, expected {want}")
+    for name, counts in shapes.items():
+        if sum(counts.values()) != res[name]:
+            raise AssertionError(f"GroupNorm launches of {name} by shape {counts} do not add "
+                                 f"up to the codec's {res[name]}")
+    res["by_shape"] = shapes
+    return res, group_norm_rows(0)
 
 
 def staged_index_check(name, got, ref, stage_scores):
@@ -939,7 +1132,7 @@ def parity_phase(label, tree, cfg, grid):
         raise AssertionError(f"{label}: card vs cpu leaves differ by {err} > {PARITY_ATOL}")
     return {"model": label, "leaves": len(leaves), "rows_that_differ": differ,
             "near_tie_rows_stage0": ties, "leaf_max_abs_err": err, "atol": PARITY_ATOL,
-            "launches": launches}
+            "launches": launches, "encode_group_norms": gn_steps(gpu)[0]}
 
 
 def profile_batches(codec, grid, out_dir: Path, prefix: str = ""):
@@ -1052,10 +1245,13 @@ def tier_round_trip(label, codec, grid, path, **opts):
         want = {"score_argmin": batches * codec._score_prep.tiles, "dequantize": 0}
     else:
         want = {"nearest_indices": s * batches, "dequantize": s * batches}
+    ge, gd = gn_steps(codec)
+    want["group_norm"] = ge * batches
     if opts.get("residual"):  # the encode batches run the decode step too
         want["dequantize"] += s * batches
+        want["group_norm"] += gd * batches
     expect_launches(f"{label} encode", enc, **want)
-    expect_launches(f"{label} decode", dec, dequantize=s * batches)
+    expect_launches(f"{label} decode", dec, dequantize=s * batches, group_norm=gd * batches)
     per_batch = {k: v / batches * 1e3 for k, v in
                  {**cstats["host_seconds"], **dstats["host_seconds"]}.items()}
     quality = psnr(out.leaves, grid.leaves)
@@ -1181,8 +1377,10 @@ def large_codebook_phase(tree, cfg, grid, seed: int, workdir: Path):
     torch.cuda.synchronize()
     res = round_trip("k4096", codec, grid, workdir, MIN_PSNR_DB)
     n, tiles = res["batches"], codec._score_prep.tiles
-    expect_launches("k4096 encode", res["encode_launches"], score_argmin=n * tiles)
-    expect_launches("k4096 decode", res["decode_launches"], dequantize=n)
+    ge, gd = gn_steps(codec)
+    expect_launches("k4096 encode", res["encode_launches"], score_argmin=n * tiles,
+                    group_norm=ge * n)
+    expect_launches("k4096 decode", res["decode_launches"], dequantize=n, group_norm=gd * n)
     with VqvdbReader(workdir / "k4096.vqvdb") as r:
         version = r.version
     idx = _file_indices(workdir / "k4096.vqvdb")
@@ -1274,7 +1472,8 @@ def deep_rows_phase(seed: int, grid, workdir: Path):
         tree, cfg = derived_model(seed + width + dim, width, dim)
         codec = VQCodec(tree, cfg, CodecConfig(**opts), device="cuda")
         batches = -(-leaves.num_leaves // codec.ccfg.batch_size)
-        want = {kernel: batches}
+        ge, gd = gn_steps(codec)
+        want = {kernel: batches, "group_norm": ge * batches}
         path = workdir / f"{label}.vqvdb"
         codec.compress(grid_subset(leaves, 64), path)  # warm-up
         torch.cuda.synchronize()
@@ -1286,7 +1485,8 @@ def deep_rows_phase(seed: int, grid, workdir: Path):
         reset_launches()
         out, dstats = codec.decompress(path)
         dec = read_launches()
-        expect_launches(f"{label} decompress", dec, dequantize=batches)
+        expect_launches(f"{label} decompress", dec, dequantize=batches,
+                        group_norm=gd * batches)
         if (out[0].leaves.shape != leaves.leaves.shape or not np.isfinite(out[0].leaves).all()
                 or not np.array_equal(out[0].origins, leaves.origins)):
             raise AssertionError(f"{label}: decoded leaves or origins are not the input's")
@@ -1409,7 +1609,8 @@ def user_path(codec, grid, workdir: Path):
         reset_launches()
         (res,) = api.decode_dense(path, codec)
         torch.cuda.synchronize()
-        expect_launches(f"dense decode {label}", read_launches(), dequantize=batches)
+        expect_launches(f"dense decode {label}", read_launches(), dequantize=batches,
+                        group_norm=gn_steps(codec)[1] * batches)
         dense = res["dense"]
         if not dense.is_cuda:
             raise AssertionError(f"dense decode {label}: result on {dense.device}")
@@ -1436,8 +1637,9 @@ def user_path(codec, grid, workdir: Path):
     got = workdir / "encode_dense.vqvdb"
     reset_launches()
     stats = api.encode_dense(v3_dense, codec, got, origin=lo)
-    expect_launches("dense encode", read_launches(),
-                    score_argmin=-(-from_dense.num_leaves // codec.ccfg.batch_size))
+    steps = -(-from_dense.num_leaves // codec.ccfg.batch_size)
+    expect_launches("dense encode", read_launches(), score_argmin=steps,
+                    group_norm=gn_steps(codec)[0] * steps)
     if got.read_bytes() != want.read_bytes():
         raise AssertionError("encode_dense differs from compress(LeafGrid.from_dense)")
     checks["encode_dense"] = {"leaves": stats["leaves"], "byte_identical": True}
@@ -1733,8 +1935,11 @@ def train_codec(cfg, params, grid, seed, workdir: Path):
     codec = VQCodec(tree, cfg2, CodecConfig(), device="cuda")
     res = round_trip("trained", codec, grid, workdir, min_psnr=0.0)
     n = res["batches"]
-    expect_launches("trained model encode", res["encode_launches"], score_argmin=n)
-    expect_launches("trained model decode", res["decode_launches"], dequantize=n)
+    ge, gd = gn_steps(codec)
+    expect_launches("trained model encode", res["encode_launches"], score_argmin=n,
+                    group_norm=ge * n)
+    expect_launches("trained model decode", res["decode_launches"], dequantize=n,
+                    group_norm=gd * n)
     sample = grid.leaves[:16384]
     report = evaluate_codec(codec, sample)
     book = codebook_report(report["indices"], cfg.num_embeddings)
@@ -2089,10 +2294,11 @@ def serving_phase(seed: int, grid, workdir: Path, device: str = "cuda"):
             if errors != 1:
                 raise AssertionError(f"{errors} requests failed; only the malformed one may")
             out["malformed"] = {"status": stray[0], "error": json.loads(stray[1])["error"]}
-            for name, info, kernel in (("encode", enc_info, "score_argmin"),
-                                       ("decode", dec_info, "dequantize")):
+            for name, info, kernel, gn in (("encode", enc_info, "score_argmin", 0),
+                                           ("decode", dec_info, "dequantize", 1)):
                 expect_launches(f"served {name}", info["launches"],
-                                **{kernel: info["device_batches"]})
+                                **{kernel: info["device_batches"],
+                                   "group_norm": gn_steps(codec)[gn] * info["device_batches"]})
                 if info["device_batches"] < 1 or not (info["coalesced"] > 0
                                                       and info["steps"] < n_req):
                     raise AssertionError(f"served {name}: no coalescing: {info}")
@@ -2282,7 +2488,9 @@ def mesh_codec_phase(tree, cfg, codec, grid, refs, workdir: Path):
         reset_launches()
         mcodec.compress(grid, path, **opts)
         enc = read_launches()
+        ge, gd = gn_steps(mcodec)
         expect_launches(f"mesh {tier} encode", enc, score_argmin=steps,
+                        group_norm=(ge + (gd if opts else 0)) * steps,
                         **({"dequantize": steps} if opts else {}))
         if path.read_bytes() != refs[tier].read_bytes():
             raise AssertionError(f"mesh {tier} file differs from the single-device file")
@@ -2291,7 +2499,8 @@ def mesh_codec_phase(tree, cfg, codec, grid, refs, workdir: Path):
     reset_launches()
     (got,), _ = mcodec.decompress(refs["v3"])
     out["decode_launches"] = read_launches()
-    expect_launches("mesh decode", out["decode_launches"], dequantize=steps)
+    expect_launches("mesh decode", out["decode_launches"], dequantize=steps,
+                    group_norm=gn_steps(mcodec)[1] * steps)
     (want,), _ = codec.decompress(refs["v3"])
     if not np.array_equal(got.leaves, want.leaves):
         raise AssertionError("mesh decompress differs from the single-device decompress")
@@ -2360,8 +2569,9 @@ def group_of_one_phase(tree, cfg, grid, refs, workdir: Path, seed: int):
         reset_launches()
         mc.compress(grid, path)
         enc = read_launches()
-        expect_launches("group-of-one encode", enc,
-                        score_argmin=-(-grid.num_leaves // mc.ccfg.batch_size))
+        steps = -(-grid.num_leaves // mc.ccfg.batch_size)
+        expect_launches("group-of-one encode", enc, score_argmin=steps,
+                        group_norm=gn_steps(mc)[0] * steps)
         if path.read_bytes() != refs["v3"].read_bytes():
             raise AssertionError("the multi-process codec's file differs from the "
                                  "single-device file")
@@ -2547,12 +2757,14 @@ def stem_phase(args, flag_tree, flag_cfg, grid, flag_file: Path, workdir: Path):
         path = workdir / f"stem_{label}.vqmodel"
         save_model(path, params, cfg)
         tree, cfg2 = load_model(path)
-        res = round_trip(f"packed_stem_{label}", VQCodec(tree, cfg2, CodecConfig(),
-                                                         device="cuda"),
-                         grid, workdir, min_psnr=0.0)
+        codec = VQCodec(tree, cfg2, CodecConfig(), device="cuda")
+        res = round_trip(f"packed_stem_{label}", codec, grid, workdir, min_psnr=0.0)
         n = res["batches"]
-        expect_launches(f"packed_stem {label} encode", res["encode_launches"], score_argmin=n)
-        expect_launches(f"packed_stem {label} decode", res["decode_launches"], dequantize=n)
+        ge, gd = gn_steps(codec)
+        expect_launches(f"packed_stem {label} encode", res["encode_launches"], score_argmin=n,
+                        group_norm=ge * n)
+        expect_launches(f"packed_stem {label} decode", res["decode_launches"], dequantize=n,
+                        group_norm=gd * n)
         psnrs[label] = res["psnr_db"]
         out[f"round_trip_{label}"] = res
     if not psnrs["trained"] > psnrs["init"]:
@@ -2579,8 +2791,9 @@ def stem_phase(args, flag_tree, flag_cfg, grid, flag_file: Path, workdir: Path):
         a = folded.decode_indices(idx)
         dec = read_launches()
         b = fused.decode_indices(idx)
-    expect_launches("folded final conv decode", dec,
-                    dequantize=-(-idx.shape[0] // folded.ccfg.batch_size))
+    steps = -(-idx.shape[0] // folded.ccfg.batch_size)
+    expect_launches("folded final conv decode", dec, dequantize=steps,
+                    group_norm=gn_steps(folded)[1] * steps)
     err = float(np.abs(a - b).max())
     if not (np.isfinite(a).all() and err <= FOLDED_TAIL_ATOL):
         raise AssertionError(f"folded final conv vs fused tail: {err:.3g} > {FOLDED_TAIL_ATOL}")
@@ -2609,16 +2822,20 @@ def _one_card_mesh(entries: int):
     return Mesh((torch.device("cuda", 0),) * entries, entries)
 
 
-def _layout_launches(label, n, batch, size):
+def _layout_launches(label, n, batch, size, codec):
     """The launches each model's encode and decode make on a mesh of `size`
-    over n leaves: one per kernel and stage a shard step."""
+    over n leaves: one per kernel and stage a shard step, and one per
+    GroupNorm of each step (`gn_steps`; a v6 encode runs the decode step too)."""
     steps = _shard_steps(n, batch, size)
-    return {"scalar": (dict(score_argmin=steps), dict(dequantize=steps)),
-            "scalar_v6_int8": (dict(score_argmin=steps, dequantize=steps), None),
-            "scalar_reference": (dict(fused_rb=steps, score_argmin=steps),
-                                 dict(dequantize=steps)),
-            "scalar_rvq2": (dict(nearest_indices=2 * steps, dequantize=2 * steps),
-                            dict(dequantize=2 * steps))}[label]
+    ge, gd = gn_steps(codec)
+    enc, dec = {"scalar": (dict(score_argmin=steps), dict(dequantize=steps)),
+                "scalar_v6_int8": (dict(score_argmin=steps, dequantize=steps), None),
+                "scalar_reference": (dict(fused_rb=steps, score_argmin=steps),
+                                     dict(dequantize=steps)),
+                "scalar_rvq2": (dict(nearest_indices=2 * steps, dequantize=2 * steps),
+                                dict(dequantize=2 * steps))}[label]
+    enc["group_norm"] = (ge + (gd if label.endswith("_v6_int8") else 0)) * steps
+    return enc, dec and dict(dec, group_norm=gd * steps)
 
 
 def _layout_case(label, tree, cfg, ref, mesh, workdir: Path, batch: int = 4096):
@@ -2643,7 +2860,7 @@ def _layout_case(label, tree, cfg, ref, mesh, workdir: Path, batch: int = 4096):
         codec.compress(grid, workdir / "layout.vqvdb", **opts)
         out[f"{tier}_encode"] = read_launches()
         expect_launches(f"layout {name} encode on {mesh.size}", out[f"{tier}_encode"],
-                        **_layout_launches(name, grid.num_leaves, batch, mesh.size)[0])
+                        **_layout_launches(name, grid.num_leaves, batch, mesh.size, codec)[0])
         if (workdir / "layout.vqvdb").read_bytes() != path.read_bytes():
             raise AssertionError(f"layout: {name} on a mesh of {mesh.size} (batch {batch}) "
                                  "writes another file than one card")
@@ -2651,7 +2868,7 @@ def _layout_case(label, tree, cfg, ref, mesh, workdir: Path, batch: int = 4096):
     (got,), _ = codec.decompress(ref["files"]["v3"][0])
     out["decode"] = read_launches()
     expect_launches(f"layout {label} decode on {mesh.size}", out["decode"],
-                    **_layout_launches(label, grid.num_leaves, batch, mesh.size)[1])
+                    **_layout_launches(label, grid.num_leaves, batch, mesh.size, codec)[1])
     if not np.array_equal(got.leaves, ref["leaves"]):
         raise AssertionError(f"layout: {label} decompress on a mesh of {mesh.size} differs")
     if "dense" in ref:
@@ -2778,13 +2995,16 @@ def _bench_capture_launches(row: str, dense_steps: int):
     """The launches one captured step of a bench row must record."""
     if row.startswith("baseline"):
         row = "decode"
-    return {"decode": {"dequantize": 1}, "encode": {"score_argmin": 1},
-            "vec3_decode": {"dequantize": 1}, "vec3_encode": {"score_argmin": 1},
-            "rvq2_decode": {"dequantize": 2},
-            "rvq2_encode": {"nearest_indices": 2, "dequantize": 2},
-            "dense_decode_device": {"dequantize": dense_steps},
-            "dense_encode_device": {"score_argmin": dense_steps,
-                                    "fused_rb": dense_steps}}[row]
+    return {"decode": {"dequantize": 1, "group_norm": 3},
+            "encode": {"score_argmin": 1, "group_norm": 3},
+            "vec3_decode": {"dequantize": 1, "group_norm": 5},
+            "vec3_encode": {"score_argmin": 1, "group_norm": 3},
+            "rvq2_decode": {"dequantize": 2, "group_norm": 3},
+            # the unfolded reference encoder: its 16-channel block eager
+            "rvq2_encode": {"nearest_indices": 2, "dequantize": 2, "group_norm": 5},
+            "dense_decode_device": {"dequantize": dense_steps, "group_norm": 3 * dense_steps},
+            "dense_encode_device": {"score_argmin": dense_steps, "fused_rb": dense_steps,
+                                    "group_norm": 3 * dense_steps}}[row]
 
 
 def bench_padding(turns=(64, 1024, 1024, 64)):
@@ -2917,8 +3137,9 @@ def dp_phase():
             if key.endswith(("_per_sec", "_per_batch")) and not (math.isfinite(v) and v > 0):
                 raise AssertionError(f"dp {label}: {key} = {v}")
         expect_launches(f"dp {label} compress", rec["compress_launches"],
-                        score_argmin=steps, fused_rb=steps)
-        expect_launches(f"dp {label} decode", rec["decode_launches"], dequantize=steps)
+                        score_argmin=steps, fused_rb=steps, group_norm=3 * steps)
+        expect_launches(f"dp {label} decode", rec["decode_launches"], dequantize=steps,
+                        group_norm=3 * steps)
         if ref is None:
             if not np.isfinite(rec["leaves"]).all():
                 raise AssertionError("dp: the no-mesh decode is not finite")
@@ -3146,9 +3367,12 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
     import numpy as np
     import torch
 
+    from vqvdb_tpu_torch.core.artifact import load_model
+    from vqvdb_tpu_torch.core.config import CodecConfig
     from vqvdb_tpu_torch.format.verify import verify_roundtrip
     from vqvdb_tpu_torch.integrations import hdk
     from vqvdb_tpu_torch.ops import build
+    from vqvdb_tpu_torch.runtime.codec import VQCodec
     from vqvdb_tpu_torch.vdb.grid import psnr
     from vqvdb_tpu_torch.vdb.openvdb_io import (COMPRESS_BLOSC, read_vdb_leafgrids,
                                                 write_vdb_leafgrids)
@@ -3180,15 +3404,17 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
 
     c = _Cooks(cmd, env)
     scalar, ref = models["scalar"], models["scalar_reference"]
+    ge, gd = gn_steps(codec)
+    ref_ge, ref_gd = gn_steps(VQCodec(*load_model(ref), CodecConfig(), device="cuda"))
     files = {k: root / f"{k}.vqvdb" for k in ("v3", "v6_int8", "v6_half", "b16384", "b1",
                                                "reference")}
     decoded = {k: root / f"{k} out.vdb" for k in files}
     # (a) the encoder SOP's defaults on the field and the decoder SOP on its
     # file, each alone: what a cook costs
     c.cook("encode_v3", hdk.encode_line(cmd, bridges["full"], files["v3"], model=scalar),
-           score_argmin=steps(full))
+           score_argmin=steps(full), group_norm=ge * steps(full))
     c.cook("decode_v3", hdk.decode_line(cmd, files["v3"], decoded["v3"], model=scalar),
-           dequantize=steps(full))
+           dequantize=steps(full), group_norm=gd * steps(full))
     # the other cooks HDK_TOGETHER at a time, their twins meanwhile: (a) Int8
     # and Half on the field's first leaves, (b) the batch parameter's two
     # ends, (c) the reference arch, (d) what the node shows when a cook fails
@@ -3197,22 +3423,24 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
         k = f"v6_{name}"
         jobs.append([(f"encode_{k}", hdk.encode_line(cmd, bridges["tiers"], files[k],
                                                      model=scalar, residual=residual),
-                      dict(score_argmin=steps(tiers), dequantize=steps(tiers))),
+                      dict(score_argmin=steps(tiers), dequantize=steps(tiers),
+                           group_norm=(ge + gd) * steps(tiers))),
                      (f"decode_{k}", hdk.decode_line(cmd, files[k], decoded[k], model=scalar),
-                      dict(dequantize=steps(tiers)))])
+                      dict(dequantize=steps(tiers), group_norm=gd * steps(tiers)))])
     for k, bridge, n, batch in (("b16384", "full", full, 16384), ("b1", "one", one, 1)):
         jobs.append([(f"encode_v3_{k}", hdk.encode_line(cmd, bridges[bridge], files[k], batch,
                                                         model=scalar),
-                      dict(score_argmin=steps(n, batch))),
+                      dict(score_argmin=steps(n, batch), group_norm=ge * steps(n, batch))),
                      (f"decode_v3_{k}", hdk.decode_line(cmd, files[k], decoded[k], batch,
                                                         model=scalar),
-                      dict(dequantize=steps(n, batch)))])
+                      dict(dequantize=steps(n, batch), group_norm=gd * steps(n, batch)))])
     jobs.append([("encode_reference", hdk.encode_line(cmd, bridges["full"], files["reference"],
                                                       model=ref),
-                  dict(fused_rb=steps(full), score_argmin=steps(full))),
+                  dict(fused_rb=steps(full), score_argmin=steps(full),
+                       group_norm=ref_ge * steps(full))),
                  ("decode_reference", hdk.decode_line(cmd, files["reference"],
                                                       decoded["reference"], model=ref),
-                  dict(dequantize=steps(full)))])
+                  dict(dequantize=steps(full), group_norm=ref_gd * steps(full)))])
     jobs.append([("missing_input", hdk.encode_line(cmd, root / "no such 'input'.vdb",
                                                    root / "x.vqvdb", model=scalar), None)])
     jobs.append([("missing_model", hdk.encode_line(cmd, bridges["one"], root / "y.vqvdb"),
@@ -3271,7 +3499,7 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
     for label in ("fresh_cache_first", "fresh_cache_second"):
         out, twin = c.cook(label, hdk.encode_line(cmd, bridges["one"], root / f"{label}.vqvdb",
                                                   model=scalar),
-                           env=fresh, score_argmin=steps(one))
+                           env=fresh, score_argmin=steps(one), group_norm=ge * steps(one))
         if out.read_bytes() != twin.read_bytes():
             raise AssertionError(f"hdk {label}: the cook's file differs from its twin's")
         if label.endswith("first"):
@@ -3293,7 +3521,8 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
     launches = {"score_argmin": c.rows["encode_v3"]["launches"]["score_argmin"],
                 "dequantize": c.rows["decode_v3"]["launches"]["dequantize"],
                 "fused_rb": c.rows["encode_reference"]["launches"]["fused_rb"],
-                "score_argmin_width32": c.rows["encode_reference"]["launches"]["score_argmin"]}
+                "score_argmin_width32": c.rows["encode_reference"]["launches"]["score_argmin"],
+                "group_norm": c.rows["encode_v3"]["launches"]["group_norm"]}
     return {"cooks": c.rows, "errors": errors, **summary}, launches
 
 
@@ -3385,6 +3614,9 @@ def main() -> int:
             log(f"[{label}] {json.dumps(res)}")
         kernels += log_kernel_rows(
             side_kernel_phase(ref_codec, grid, side["vec3"][2], vgrid))
+        gn_res, gn_rows = group_norm_phase(side["vec3"][2], vgrid, ref_codec, grid, workdir)
+        log(f"[group_norm] {json.dumps(gn_res)}")
+        kernels += log_kernel_rows(gn_rows)
         if args.profile is not None:
             # (not `codec`: the flagship's codec runs the later phases)
             for label, side_codec, data in (("reference", ref_codec, grid),
@@ -3408,7 +3640,8 @@ def main() -> int:
         log(f"[parity] {json.dumps(par[label])}")
     for label in ("scalar_rvq2", "vec3_rvq2"):
         expect_launches(f"{label} f32 encode", par[label]["launches"],
-                        nearest_indices=2, dequantize=2)
+                        nearest_indices=2, dequantize=2,
+                        group_norm=par[label]["encode_group_norms"])
 
     with tempfile.TemporaryDirectory() as tmp:
         workdir = Path(tmp)
@@ -3460,6 +3693,13 @@ def main() -> int:
                 "score_argmin_f32": par["scalar"]["launches"]["score_argmin"],
                 "nearest_indices": unf["launches"]["nearest_indices"]}
     launches["fused_rb"] = ref_res["encode_launches"]["fused_rb"]
+    # The GroupNorm kernel: phase 3 runs it at 4^3 x 64 alone; phase 7b's
+    # counts by shape give the rows at the other shapes.
+    launches["group_norm_relu_4x64"] = (main_res["encode_launches"]["group_norm"]
+                                        + main_res["decode_launches"]["group_norm"])
+    launches["group_norm_relu_8x64"] = gn_res["by_shape"]["vec3_upstream_encode"]["512x64/8"]
+    launches["group_norm_relu_4x128"] = gn_res["by_shape"]["vec3_decode"]["64x128/8"]
+    launches["group_norm_relu_8x16"] = gn_res["by_shape"]["reference_encode"]["512x16/4"]
     launches["fused_rb_f32"] = par["scalar_reference"]["launches"]["fused_rb"]
     launches["score_argmin_width32"] = ref_res["encode_launches"]["score_argmin"]
     launches["score_argmin_width128"] = side_res["vec3"]["encode_launches"]["score_argmin"]
@@ -3475,6 +3715,7 @@ def main() -> int:
     # each must have launched too.
     launches["score_argmin_mesh"] = mesh_res["codec"]["v3_encode_launches"]["score_argmin"]
     launches["dequantize_mesh"] = mesh_res["codec"]["decode_launches"]["dequantize"]
+    launches["group_norm_mesh"] = mesh_res["codec"]["decode_launches"]["group_norm"]
     launches["nearest_indices_group_of_one"] = \
         mesh_res["group_of_one"]["train_launches"]["nearest_indices"]
     launches["score_argmin_packed_stem"] = \
@@ -3489,6 +3730,7 @@ def main() -> int:
     launches["dequantize_layout"] = many["scalar"]["decode"]["dequantize"]
     launches["fused_rb_layout"] = many["scalar_reference"]["v3_encode"]["fused_rb"]
     launches["nearest_indices_layout"] = many["scalar_rvq2"]["v3_encode"]["nearest_indices"]
+    launches["group_norm_layout"] = many["scalar"]["v3_encode"]["group_norm"]
     # Phase 19's bench: each kernel counted once per capture and eager call
     # (a replayed graph launches without its wrapper).
     for name, count in bench_launches.items():

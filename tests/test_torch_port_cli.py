@@ -88,14 +88,15 @@ def _indices(path):
 
 def test_vdb_encode_decode_match_jax_cli(scene, capsys):
     """encode .vdb -> .vqvdb and decode -> .vdb through both CLIs: files
-    equal off near-tie rows, the same JSON keys (plus host_seconds), the
+    equal off near-tie rows, the same JSON keys (plus the port's own stats:
+    host_seconds, group_norm_launches, decode's readback counters), the
     decoded .vdb above 30 dB and equal to the port's decompress."""
     tmp, vdb = scene
     ours, theirs = tmp / "ours.vqvdb", tmp / "theirs.vqvdb"
     rc, enc = _run(cli, ["encode", vdb, ours, "--model", MODEL, *CPU, *F32], capsys)
     jrc, jenc = _run(jax_cli, ["encode", vdb, theirs, "--model", MODEL, *F32], capsys)
     assert rc == jrc == 0
-    assert set(enc) == set(jenc) | {"host_seconds"}
+    assert set(enc) == set(jenc) | {"host_seconds", "group_norm_launches"}
     assert enc["leaves"] == jenc["leaves"] and enc["grids"] == jenc["grids"] == 1
     (grid,) = read_vdb_leafgrids(vdb)
     bad = (_indices(ours) != _indices(theirs)).reshape(-1)
@@ -111,9 +112,10 @@ def test_vdb_encode_decode_match_jax_cli(scene, capsys):
     rc, dec = _run(cli, ["decode", theirs, out_vdb, "--model", MODEL, *CPU, *F32], capsys)
     jrc, jdec = _run(jax_cli, ["decode", theirs, jout_vdb, "--model", MODEL, *F32], capsys)
     assert rc == jrc == 0 and dec["vdb"] == str(out_vdb)
-    assert set(dec) == set(jdec) | {"host_seconds", "direct_readback_share",
-                                    "pinned_pool_growth"}
+    assert set(dec) == set(jdec) | {"host_seconds", "group_norm_launches",
+                                    "direct_readback_share", "pinned_pool_growth"}
     assert dec["direct_readback_share"] == 1.0 and dec["pinned_pool_growth"] == 0
+    assert enc["group_norm_launches"] == dec["group_norm_launches"] == 0  # the CPU
     (recon,), (jrecon,) = read_vdb_leafgrids(out_vdb), read_vdb_leafgrids(jout_vdb)
     np.testing.assert_array_equal(recon.origins, jrecon.origins)
     np.testing.assert_allclose(recon.leaves, jrecon.leaves, atol=1e-5)

@@ -312,6 +312,171 @@ def _rb_params(rng, dev, c=16):
     return {"gn1": gn(), "conv1": conv(), "gn2": gn(), "conv2": conv()}
 
 
+# (spatial, channels, groups) of every GroupNorm the committed models reach,
+# packed_stem's 8^3 stage, and chip_smoke.py's derived model of width 160
+GN_SHAPES = [((8, 8, 8), 64, 8), ((4, 4, 4), 128, 8), ((4, 4, 4), 64, 8), ((8, 8, 8), 16, 4),
+             ((8, 8, 8), 8, 4), ((8, 8, 8), 16, 8), ((4, 4, 4), 32, 8), ((4, 4, 4), 160, 8)]
+
+
+def _gn_inputs(rng, dev, n, spatial, c, dtype):
+    """Conv-output-like leaves (a per-channel spread and offset) and
+    trained-looking affine params."""
+    x = (rng.standard_normal((n,) + spatial + (c,)) * rng.uniform(0.5, 2.0, c)
+         + rng.uniform(-0.5, 0.5, c))
+    params = {"scale": torch.from_numpy(1 + 0.2 * rng.standard_normal(c)).to(dev, torch.float32),
+              "bias": torch.from_numpy(0.2 * rng.standard_normal(c)).to(dev, torch.float32)}
+    return torch.from_numpy(x).to(dev, dtype), params
+
+
+def _ulp(t):
+    """One unit in the last place of t's dtype at max(|t|, 1): the outputs
+    are normalised, so a value near 0 carries its group's statistics'
+    rounding, a unit of the scale of 1."""
+    mag = t.float().abs().clamp(min=1.0)
+    return torch.exp2(torch.floor(torch.log2(mag)) - (7 if t.dtype == torch.bfloat16 else 23))
+
+
+def _gn_f64(params, x, groups):
+    b, c = x.shape[0], x.shape[-1]
+    g = x.double().reshape(b, -1, groups, c // groups)
+    mean = g.mean(dim=(1, 3), keepdim=True)
+    var = ((g - mean) ** 2).mean(dim=(1, 3), keepdim=True)
+    y = ((g - mean) / torch.sqrt(var + 1e-5)).reshape(x.shape)
+    return (y * params["scale"].double() + params["bias"].double()).clamp(min=0)
+
+
+def _assert_near_plain(got, want, params, x, groups):
+    """bf16: within one unit in the last place of the plain version and
+    equal on >= 99% of the values. f32: the two sums' other order moves the
+    group's mean and variance by a few units of their own, which every value
+    carries (up to 6 units and 83-89% equal on an H100), so f32 is held
+    within 8 units of the plain version and, against an f64 GroupNorm, to
+    no more than 1.5 times the plain version's largest error (1.13 times at
+    most there)."""
+    ok = want.isfinite()
+    diff = (got.float() - want.float()).abs()[ok]
+    if got.dtype == torch.bfloat16:
+        assert (diff <= _ulp(want)[ok]).all()
+        assert (got == want)[ok].float().mean().item() >= 0.99
+        return
+    assert (diff <= 8 * _ulp(want)[ok]).all()
+    ref = _gn_f64(params, x, groups)
+    scale = ref.abs().clamp(min=1.0)
+    err = lambda y: ((y.double() - ref).abs() / scale)[ok].max().item()
+    assert err(got) <= 1.5 * err(want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial,c,groups", GN_SHAPES)
+def test_card_group_norm_relu(rng, spatial, c, groups, dtype):
+    """The kernel against its plain version (the eager GroupNorm and ReLU;
+    only the order of the two f32 sums differs, `_assert_near_plain`), one
+    launch a call, the same bits on repeat."""
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused, group_norm_relu_plain
+
+    dev = _card()
+    x, params = _gn_inputs(rng, dev, 333, spatial, c, dtype)
+    launches = group_norm_relu_fused.launches
+    got = group_norm_relu_fused(params, x, groups)
+    torch.cuda.synchronize()
+    assert group_norm_relu_fused.launches == launches + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    _assert_near_plain(got, group_norm_relu_plain(params, x, groups), params, x, groups)
+    assert torch.equal(group_norm_relu_fused(params, x, groups), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_group_norm_relu_wide_leaves(rng, dtype):
+    """chip_smoke.py's derived model of width 1,024: its 4^3 leaves, 128 KB
+    in bf16 (through shared memory) and 256 KB in f32 (more than a block's
+    shared memory: read from device memory in each pass), as near the plain
+    version as the cells' shapes, at 1 and 301 leaves alike."""
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused, group_norm_relu_plain
+
+    dev = _card()
+    x, params = _gn_inputs(rng, dev, 301, (4, 4, 4), 1024, dtype)
+    got = group_norm_relu_fused(params, x, 8)
+    _assert_near_plain(got, group_norm_relu_plain(params, x, 8), params, x, 8)
+    assert torch.equal(group_norm_relu_fused(params, x[7:8], 8), got[7:8])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("spatial,c,groups", GN_SHAPES[:4])
+def test_card_group_norm_relu_leaf_bits_do_not_depend_on_the_batch(rng, spatial, c, groups,
+                                                                   dtype):
+    """A leaf gets the same bits alone and in batches of 2 to 4,097 leaves,
+    at either end of the batch (other places in the kernel's blocks)."""
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
+
+    dev = _card()
+    x, params = _gn_inputs(rng, dev, 4097, spatial, c, dtype)
+    whole = group_norm_relu_fused(params, x, groups)
+    for n in (1, 2, 63, 64, 4096):
+        assert torch.equal(group_norm_relu_fused(params, x[:n], groups), whole[:n]), n
+        assert torch.equal(group_norm_relu_fused(params, x[-n:], groups), whole[-n:]), n
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_card_group_norm_relu_non_finite_leaves(rng, dtype):
+    """NaN and +-inf planted in some leaves' groups give the plain version's
+    pattern of NaN and inf, and leave the other values as near the plain
+    version's as `_assert_near_plain` holds them."""
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused, group_norm_relu_plain
+
+    dev = _card()
+    for spatial, c, groups in GN_SHAPES[:2]:
+        x, params = _gn_inputs(rng, dev, 64, spatial, c, dtype)
+        x[0, 0, 0, 0, 0] = float("nan")
+        x[1, 1, 2, 3, c - 1] = float("inf")
+        x[2, 0, 1, 0, 3] = float("-inf")
+        x[3, 0, 0, 0, 0] = float("inf")
+        x[3, 1, 0, 0, 1] = float("-inf")
+        got = group_norm_relu_fused(params, x, groups)
+        want = group_norm_relu_plain(params, x, groups)
+        assert torch.equal(got.isnan(), want.isnan()) and torch.equal(got.isinf(), want.isinf())
+        assert got.isnan().any()
+        _assert_near_plain(got, want, params, x, groups)
+
+
+@pytest.mark.cuda
+def test_card_group_norm_dispatch_and_the_codecs_launches(rng, tmp_path):
+    """`blocks.group_norm_relu` launches the kernel on the card only at
+    inference and keeps the eager form (and autograd) in training; a codec
+    call's stats count one launch per GroupNorm: 3 per flagship encode and
+    decode batch, 7 per batch of upstream's vec3 encoder."""
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.models import blocks
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
+    from vqvdb_tpu_torch.vdb.grid import LeafGrid
+
+    dev = _card()
+    x, params = _gn_inputs(rng, dev, 8, (4, 4, 4), 64, torch.float32)
+    launches = group_norm_relu_fused.launches
+    leaf = x.clone().requires_grad_(True)
+    got = blocks.group_norm_relu(params, leaf, 8)
+    got.sum().backward()
+    assert group_norm_relu_fused.launches == launches
+    assert torch.equal(got.detach(), torch.relu(blocks.group_norm(params, x, 8)))
+    with torch.inference_mode():
+        blocks.group_norm_relu(params, x, 8)
+    assert group_norm_relu_fused.launches == launches + 1
+    n = 4096 + 300
+    origins = (np.stack(np.unravel_index(np.arange(n), (32, 32, 32)), 1) * 8).astype(np.int32)
+    for name, channels, per_batch in (("scalar", 1, (3, 3)), ("vec3_upstream", 3, (7, 5))):
+        codec = api.make_codec(_MODELS / f"{name}.vqmodel", device="cuda")
+        grid = LeafGrid("density", origins,
+                        rng.random((n, 8, 8, 8, channels), np.float32) * 2 - 1)
+        path = tmp_path / f"{name}.vqvdb"
+        cstats = codec.compress(grid, path)
+        _, dstats = codec.decompress(path)
+        assert (cstats["group_norm_launches"], dstats["group_norm_launches"]) == (
+            2 * per_batch[0], 2 * per_batch[1])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("groups", [8, 4])

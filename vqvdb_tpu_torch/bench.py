@@ -153,14 +153,16 @@ def _tensors(out) -> Tuple[torch.Tensor, ...]:
 
 
 def launches() -> Dict[str, int]:
-    """The four kernel wrappers' launch counters."""
+    """The five kernel wrappers' launch counters."""
     from vqvdb_tpu_torch.ops import quantize as q
     from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
+    from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
 
     return {"dequantize": q.fused_dequantize.launches,
             "score_argmin": q.fused_score_argmin.launches,
             "nearest_indices": q.fused_nearest_indices.launches,
-            "fused_rb": residual_block_fused.launches}
+            "fused_rb": residual_block_fused.launches,
+            "group_norm": group_norm_relu_fused.launches}
 
 
 class FencedLoop:

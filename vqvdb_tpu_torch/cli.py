@@ -17,8 +17,9 @@ Every subcommand that runs a model or places its weights takes `--device`
 (default `cuda`; `cpu` runs the kernels' plain versions). The kernels are
 built into the directory `utils/compile_cache.py` chooses
 (VQVDB_COMPILE_CACHE). Output is one JSON object, with the JAX
-CLI's keys and, where the codec reports them, `host_seconds` and (decode)
-`direct_readback_share` and `pinned_pool_growth`; `train` logs its
+CLI's keys and, where the codec reports them, `host_seconds`,
+`group_norm_launches` and (decode) `direct_readback_share` and
+`pinned_pool_growth`; `train` logs its
 epochs and writes the model, its `.history.json` and checkpoints (the
 port's own format, train/checkpoint.py). Exit codes are the JAX CLI's: 0
 done, 1 a file or model error, 2 a usage error, 130 an encode stopped by

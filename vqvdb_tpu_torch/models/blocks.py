@@ -176,7 +176,9 @@ def row_wise(fn, x: torch.Tensor) -> torch.Tensor:
 # attention mean took other bits in calls of one or two leaves than of four
 # to 4,096 (`tools/batch_invariance.py`), so a batch size of 1, or a file's
 # last batch of one or two leaves, moved a leaf's code. On the CPU no call
-# size moved them.
+# size moved them. The model's GroupNorms run as one kernel on the card
+# (`group_norm_relu`), which needs no padding; the eager `group_norm` keeps
+# it for the plain versions that are held to that kernel.
 MIN_REDUCE_ROWS = {"cuda": 64, "cpu": 1}
 
 
@@ -236,6 +238,18 @@ def group_norm(params: Params, x: torch.Tensor, num_groups: int,
     return padded_rows(norm, x)
 
 
+def group_norm_relu(params: Params, x: torch.Tensor, num_groups: int) -> torch.Tensor:
+    """relu(group_norm(x)). On the card at inference (`torch.inference_mode`,
+    as `row_wise` tells) one kernel, `ops/group_norm.py`, whose fixed
+    reduction order keeps a leaf's bits in a batch of any size without
+    `padded_rows`; elsewhere, training included, the eager form."""
+    if x.device.type == "cuda" and torch.is_inference_mode_enabled():
+        from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
+
+        return group_norm_relu_fused(params, x, num_groups)
+    return torch.relu(group_norm(params, x, num_groups))
+
+
 def pixel_shuffle_3d(x: torch.Tensor, r: int = 2) -> torch.Tensor:
     """Voxel shuffle (B,D,H,W,C) -> (B,D*r,H*r,W*r,C/r^3); the channel dim
     splits as (oc, rd, rh, rw) with oc outermost."""
@@ -261,10 +275,10 @@ def residual_block(params: Params, x: torch.Tensor, *, groups: int = 8,
     conv1(relu(gn1 x))))). SAME padding comes from each conv's kernel. Each
     half is a trace range (`rb/conv1`, `rb/conv2`)."""
     with span("rb/conv1"):
-        h = torch.relu(group_norm(params["gn1"], x, groups))
+        h = group_norm_relu(params["gn1"], x, groups)
         h = conv3d(params["conv1"], h, padding=same_padding(params["conv1"]))
     with span("rb/conv2"):
-        h = torch.relu(group_norm(params["gn2"], h, groups))
+        h = group_norm_relu(params["gn2"], h, groups)
         h = conv3d(params["conv2"], h, padding=same_padding(params["conv2"]))
         return x + h * _rounded(scale, x.dtype)
 

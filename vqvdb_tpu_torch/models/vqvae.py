@@ -30,7 +30,9 @@ tree (encoder / decoder / vq, convs OIDHW channels-last, the JAX layout
 otherwise) from a `torch.Generator`; `vqvae_forward` is the training
 forward with the EMA quantizer. Training runs the eager residual block, as
 the JAX package does: the fused-block kernel is an inference path and has
-no backward.
+no backward. So is the GroupNorm kernel: each GroupNorm and the ReLU after
+it go through `blocks.group_norm_relu`, one launch on the card at
+inference, the eager form otherwise.
 """
 
 from __future__ import annotations
@@ -87,12 +89,12 @@ def _encoder_features_packed(params: Params, x: torch.Tensor) -> torch.Tensor:
         h = x
         if "pre_conv" in params:
             h = blocks.conv3d(params["pre_conv"], h, padding=1)
-            h = torch.relu(blocks.group_norm(params["pre_gn"], h,
-                                             params["pre_gn"]["scale"].shape[0] // 2))
+            h = blocks.group_norm_relu(params["pre_gn"], h,
+                                       params["pre_gn"]["scale"].shape[0] // 2)
         h = space_to_channel(h, 2)
         h = blocks.conv3d(params["stem_conv"], h,
                           padding=blocks.same_padding(params["stem_conv"]))
-        h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
+        h = blocks.group_norm_relu(params["stem_gn"], h, 8)
     with span("encode/rb"):
         h = blocks.residual_block(params["rb"], h)
     with span("encode/attention"):
@@ -108,7 +110,7 @@ def _reference_pre(params: Params, x: torch.Tensor, cfg: ModelConfig,
         with span("encode/pre_conv"):
             h = blocks.conv3d(params["pre_conv"], x, padding=1)
             pre_groups = 4 if cfg.variant == "scalar" else 8
-            h = torch.relu(blocks.group_norm(params["pre_gn"], h, pre_groups))
+            h = blocks.group_norm_relu(params["pre_gn"], h, pre_groups)
         with span("encode/pre_rb"):
             if fuse_rb16:
                 # The kernel reads a dense NDHWC buffer; a no-op when GroupNorm
@@ -168,14 +170,14 @@ def decoder_pre_tail(params: Params, z: torch.Tensor,
     """Decoder up to (excluding) up_conv: (B,4,4,4,D) -> (B,4,4,4,64|128)."""
     with span("decode/stem"):
         h = blocks.conv3d(params["stem_conv"], z, padding=1)
-        h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
+        h = blocks.group_norm_relu(params["stem_gn"], h, 8)
     return _decoder_blocks(params, h, cfg)
 
 
 def _decoder_trunk(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The decoder after its stem conv, up to (excluding) up_conv."""
     with span("decode/stem"):
-        h = torch.relu(blocks.group_norm(params["stem_gn"], h, 8))
+        h = blocks.group_norm_relu(params["stem_gn"], h, 8)
     return _decoder_blocks(params, h, cfg)
 
 

@@ -94,6 +94,7 @@ from vqvdb_tpu_torch.models.vqvae import (
     encoder_features,
     encoder_features_packed_down,
 )
+from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
 from vqvdb_tpu_torch.ops.packed import fold_strided_conv
 from vqvdb_tpu_torch.ops.quantize import (
     fold_proj_into_scores,
@@ -562,11 +563,14 @@ class VQCodec:
         host["write_frames"] += time.perf_counter() - t1
 
     @staticmethod
-    def _stats(total: int, t0: float, host: Dict[str, float]) -> dict:
+    def _stats(total: int, t0: float, host: Dict[str, float], gn0: int) -> dict:
+        """A call's stats; `gn0` is the GroupNorm kernel's launch count at
+        its start."""
         dt = time.perf_counter() - t0
         return {"leaves": total, "seconds": dt,
                 "leaves_per_sec": total / dt if dt > 0 else float("inf"),
-                "host_seconds": host}
+                "host_seconds": host,
+                "group_norm_launches": group_norm_relu_fused.launches - gn0}
 
     def compress(
         self,
@@ -594,9 +598,11 @@ class VQCodec:
             batches written so far are kept, the open grid's block count is
             patched (VqvdbWriter.abort_grid), later grids are skipped, and
             the stats say "aborted": True.
-        Returns {leaves, seconds, leaves_per_sec, host_seconds, bytes,
-        aborted}; host_seconds splits the host's residual quantization and
-        frame writing (compression included) from the rest.
+        Returns {leaves, seconds, leaves_per_sec, host_seconds,
+        group_norm_launches, bytes, aborted}; host_seconds splits the host's
+        residual quantization and frame writing (compression included) from
+        the rest; group_norm_launches counts the GroupNorm kernel's launches
+        during the call (`ops/group_norm.py`; 0 on the CPU).
         """
         if isinstance(grids, LeafGrid):
             grids = [grids]
@@ -605,7 +611,7 @@ class VQCodec:
         kind = "encode" if residual is None else "residual"
         host = {"quantize_residual": 0.0, "write_frames": 0.0}
         aborted = False
-        t0 = time.perf_counter()
+        t0, gn0 = time.perf_counter(), group_norm_relu_fused.launches
         total = 0
         with _writing(out_path, format_version, compression) as w:
             for grid in grids:
@@ -623,7 +629,7 @@ class VQCodec:
                     if progress:
                         print(f"[compress] {grid.name}: {s + n}/{grid.num_leaves}")
                 w.abort_grid() if aborted else w.end_grid()
-        stats = self._stats(total, t0, host)
+        stats = self._stats(total, t0, host, gn0)
         stats.update(bytes=Path(out_path).stat().st_size, aborted=aborted)
         return stats
 
@@ -656,7 +662,7 @@ class VQCodec:
         host = {"quantize_residual": 0.0, "write_frames": 0.0}
         bs = self.ccfg.batch_size
         aborted = False
-        t0 = time.perf_counter()
+        t0, gn0 = time.perf_counter(), group_norm_relu_fused.launches
         total = 0
 
         def rechunk(it):
@@ -707,7 +713,7 @@ class VQCodec:
                     raise ValueError(f"stream '{stream.name}' yielded {cursor} leaves, "
                                      f"declared {stream.num_leaves}")
                 w.end_grid()
-        stats = self._stats(total, t0, host)
+        stats = self._stats(total, t0, host, gn0)
         stats.update(bytes=Path(out_path).stat().st_size, aborted=aborted)
         return stats
 
@@ -827,14 +833,15 @@ class VQCodec:
         page-locked memory. On the CPU the leaves are ordinary memory.
 
         Returns (grids, {leaves, seconds, leaves_per_sec, host_seconds,
-        direct_readback_share, pinned_pool_growth}); host_seconds splits
-        frame reading (decompression included) and the v6 correction from
-        the rest; direct_readback_share is the share of decoded rows whose
+        group_norm_launches, direct_readback_share, pinned_pool_growth});
+        host_seconds splits frame reading (decompression included) and the
+        v6 correction from the rest; group_norm_launches as in `compress`;
+        direct_readback_share is the share of decoded rows whose
         copy from the device landed in the output grid (1.0, also when
         nothing was selected); pinned_pool_growth counts the blocks the call
         added to the pinned pool (0 on the CPU, and 0 in a steady loop over
         frames once the pool holds what the caller keeps)."""
-        t0 = time.perf_counter()
+        t0, gn0 = time.perf_counter(), group_norm_relu_fused.launches
         pool0 = self._pinned_blocks()
         host = {"read_frames": 0.0, "apply_residual": 0.0}
         blk = (LEAF_DIM, LEAF_DIM, LEAF_DIM, self.mcfg.in_channels)
@@ -873,7 +880,7 @@ class VQCodec:
             out_grids = [LeafGrid(name=meta.name, origins=origins[:n],
                                   leaves=leaves.numpy()[:n], transform=meta.transform)
                          for meta, leaves, origins, n in made]
-        stats = self._stats(total, t0, host)
+        stats = self._stats(total, t0, host, gn0)
         stats.update(direct_readback_share=direct / total if total else 1.0,
                      pinned_pool_growth=self._pinned_blocks() - pool0)
         return out_grids, stats

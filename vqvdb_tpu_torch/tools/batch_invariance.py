@@ -11,8 +11,9 @@ of the encode and decode steps of the flagship (`models/scalar.vqmodel`),
 the reference arch (`scalar_reference`) and the residual-VQ model
 (`scalar_rvq2`) whole and in row blocks of 2,048, 1,024, 512 and 256
 leaves (the shards of a 4,096-leaf batch on 2 to 16 devices), in bf16 and
-f32 (TF32 off), the four kernels included (each block its own launch), and
-prints one JSON object:
+f32 (TF32 off), the five kernels included (each block its own launch; the
+`group_norm_relu` stages run the GroupNorm kernel on the card, the eager
+`group_norm` stages its plain version), and prints one JSON object:
 
   "stages":      {model: {dtype: {stage: {block rows: bit-equal}}}}: the
                  port's forms, which must all be true;
@@ -104,6 +105,8 @@ def _flagship(codec, x, sizes):
     out["encoder_stem_conv"] = _invariant(
         lambda t: blocks.conv3d(enc["stem_conv"], t, padding=1), packed, sizes)
     out["group_norm"] = _invariant(lambda t: blocks.group_norm(enc["stem_gn"], t, 8), h, sizes)
+    out["group_norm_relu"] = _invariant(
+        lambda t: blocks.group_norm_relu(enc["stem_gn"], t, 8), h, sizes)
     out["residual_block"] = _invariant(lambda t: blocks.residual_block(enc["rb"], t), h, sizes)
     out["attention_mean"] = _invariant(blocks.channel_mean, h, sizes)
     out["attention_fc"] = _invariant(lambda t: blocks.row_blocks(t, w), y, sizes)
@@ -133,12 +136,14 @@ def _reference(codec, x, sizes):
     with torch.inference_mode():
         xd = x.to(codec.dtype)
         h1 = blocks.conv3d(enc["pre_conv"], xd, padding=1)
-        h2 = torch.relu(blocks.group_norm(enc["pre_gn"], h1, 4)).contiguous()
+        h2 = blocks.group_norm_relu(enc["pre_gn"], h1, 4).contiguous()
         h3 = residual_block_fused(enc["pre_rb"], h2)
     out["pre_conv"] = _invariant(lambda t: blocks.conv3d(enc["pre_conv"], t, padding=1),
                                  xd, sizes)
     out["pre_group_norm"] = _invariant(lambda t: blocks.group_norm(enc["pre_gn"], t, 4),
                                        h1, sizes)
+    out["pre_group_norm_relu"] = _invariant(
+        lambda t: blocks.group_norm_relu(enc["pre_gn"], t, 4), h1, sizes)
     out["fused_rb"] = _invariant(lambda t: residual_block_fused(enc["pre_rb"], t), h2, sizes)
     out["folded_down_conv"] = _invariant(
         lambda t: blocks.conv3d(folded, space_to_channel(t, 2), padding=1), h3, sizes)
