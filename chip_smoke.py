@@ -23,8 +23,11 @@ Phases, in this order; any failure raises and the script exits non-zero:
   5. reference-arch path: `models/scalar_reference.vqmodel` at full width on
      the same --leaves leaves, default CodecConfig: compress -> v3 ->
      decompress with the counters reset before and read after each half
-     (one fused residual-block launch per encode batch), then the same
-     compress with fuse_rb16=False (the eager block) in turns for an A/B.
+     (one fused residual-block launch per encode batch), then an A/B in
+     turns of the encoder's features at the codec's batch with the fused
+     16-channel block and with the eager one
+     (`encoder_features_packed_down(fuse_rb16=True / False)`), counters
+     around each.
   6. residual-VQ path (`models/scalar_rvq2.vqmodel`) and vec3 path
      (`models/vec3.vqmodel` on a seeded 3-channel field) at --side-leaves
      leaves each, counters around each half: two nearest-code and two
@@ -45,9 +48,8 @@ Phases, in this order; any failure raises and the script exits non-zero:
      batch, 7 per batch of upstream's vec3 encoder (`vec3_upstream`), 3 per
      reference-arch encode batch. Every phase's launch checks count the
      kernel too (`gn_steps`: one launch per GroupNorm of a step).
-  8. unfused path: fuse_proj_quantize=False (the nearest-code kernel) in
-     f32, counters reset around it; its indices must equal the fused f32
-     path's except on near-ties.
+  8. (none: the codec has one encode path; phases 6 and 13 run the
+     nearest-code kernel)
   9. parity: 1,024 leaves through a `cuda` and a `cpu` codec in f32 (TF32
      off for cuDNN and cuBLAS), for every shipped artifact: the flagship,
      the reference arch, the residual-VQ model and packed_lite on the scalar
@@ -85,10 +87,12 @@ Phases, in this order; any failure raises and the script exits non-zero:
      turns.
  13. deep rows: derived models of the flagship's graph with weights from
      --seed take the kernels where no shipped model does: the score kernel
-     on f32 rows of depth 160 and bf16 rows of depth 1024 and the
-     nearest-code kernel at D = 160 (the streamed-depth mode), and the
-     dequantize kernel on 40-byte bf16 rows (D = 20), each on a codec path
-     with counters around it, then against its plain version.
+     on f32 rows of depth 160 and bf16 rows of depth 1024 (the
+     streamed-depth mode) and the dequantize kernel on 40-byte bf16 rows
+     (D = 20), each on a codec path with counters around it; the
+     nearest-code kernel at D = 160 (streamed depth) on the projection of
+     the depth-160 model's encoder, counters around it; then each against
+     its plain version.
  14. training: the flagship's ModelConfig at full width with the default
      TrainConfig (batch 2048, bf16), 2 epochs over the phase-3 leaves (80/20
      split): (1) one f32 train step (TF32 off) on 256 leaves from the same
@@ -140,14 +144,12 @@ Phases, in this order; any failure raises and the script exits non-zero:
      train steps (TF32 off) of the ranks bit-identical to each other and
      within rtol 2e-4 / atol 2e-5 of one process on the global batches.
      --mesh-only runs phases 1-3, 16 and 18 alone. Logs `[mesh] <part> {...}`.
- 17. packed_stem and the folded final conv: (1) a packed_stem model at the
-     flagship's widths trained from seeded init on the card (one resident
-     epoch over the --leaves leaves, batch 2048, bf16; one nearest-code and
-     one dequantize launch per step and val batch), through save_model ->
-     VQCodec -> v3 (one score-argmin launch per batch) above its initial
-     params' PSNR; (2) phase 9's card-vs-CPU parity on it; (3) the flagship
-     decoded through the folded final conv (fuse_decoder_tail=False, f32,
-     TF32 off) within 1e-5 of the fused tail. Logs `[stem] <part> {...}`.
+ 17. packed_stem: (1) a packed_stem model at the flagship's widths
+     trained from seeded init on the card (one resident epoch over the
+     --leaves leaves, batch 2048, bf16; one nearest-code and one dequantize
+     launch per step and val batch), through save_model -> VQCodec -> v3
+     (one score-argmin launch per batch) above its initial params' PSNR;
+     (2) phase 9's card-vs-CPU parity on it. Logs `[stem] <part> {...}`.
  18. layout: (1) `tools/batch_invariance.py` on the card: every stage of the
      encode and decode steps of the flagship, the reference arch and
      scalar_rvq2 (convs, GroupNorm, attention, tail, the four kernels)
@@ -173,8 +175,9 @@ Phases, in this order; any failure raises and the script exits non-zero:
      `mesh_devices` the visible cards, each captured
      row's replay bit-equal to its eager step, each capture must record its
      row's kernel launches, and on an H100 SXM the decode and encode MFU
-     lie in (0, 1]. Then the baseline's batch-64 step against the same step
-     at 1,024 rows in turns (the padding of `models/blocks.py`). Logs
+     lie in (0, 1]. Then the baseline's batch-64 step (`bench.baseline_step`)
+     against the same step at 1,024 rows in turns (the padding of
+     `models/blocks.py`). Logs
      `[bench] card: <nvidia-smi>`, `[bench] {...}` (the bench's line),
      `[bench] rows [...]` and `[bench] padding {...}`.
  20. data-parallel bench: `vqvdb_tpu_torch.bench_dp.bench_mesh_size` (the
@@ -538,8 +541,7 @@ def gn_steps(codec):
             return 1
         return sum(count(v) for v in tree.values())
 
-    fused = (codec._folded_down is not None and codec.ccfg.fuse_rb16
-             and codec.mcfg.variant == "scalar")
+    fused = codec._folded_down is not None and codec.mcfg.variant == "scalar"
     return count(codec.params["encoder"]) - 2 * fused, count(codec.params["decoder"])
 
 
@@ -618,60 +620,19 @@ def main_path(tree, cfg, grid, workdir: Path):
     return codec, result
 
 
-def unfused_path(tree, cfg, grid, workdir: Path):
-    """Phase 8: fuse_proj_quantize=False (nearest-code kernel) in f32,
-    against the fused f32 path on the same leaves."""
-    import torch
-
-    from vqvdb_tpu_torch.core.config import CodecConfig
-    from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
-    from vqvdb_tpu_torch.models.vqvae import encoder_features
-    from vqvdb_tpu_torch.runtime.codec import VQCodec
-
-    fused = VQCodec(tree, cfg, CodecConfig(compute_dtype="float32"), device="cuda")
-    unfused = VQCodec(tree, cfg, CodecConfig(compute_dtype="float32",
-                                             fuse_proj_quantize=False), device="cuda")
-    fused.compress(grid, workdir / "fused.vqvdb")
-    reset_launches()
-    stats = unfused.compress(grid, workdir / "unfused.vqvdb")
-    launches = read_launches()
-    if launches["nearest_indices"] < 1 or launches["score_argmin"]:
-        raise AssertionError(f"unfused path launches {launches}")
-    result = {"leaves": grid.num_leaves, "launches": launches,
-              "compress_leaves_per_s": stats["leaves_per_sec"]}
-    idx = {}
-    for name in ("fused", "unfused"):
-        with VqvdbReader(workdir / f"{name}.vqvdb") as r:
-            idx[name] = torch.from_numpy(r.read_grid()[1].astype("int64")).reshape(-1)
-    # Near-ties are judged on the fused f32 scores of the differing rows.
-    bad = (idx["fused"] != idx["unfused"]).nonzero().reshape(-1)
-    leaf_rows = torch.unique(bad // 64)
-    with torch.inference_mode():
-        leaves = torch.from_numpy(grid.leaves[leaf_rows.numpy()]).cuda()
-        h = encoder_features(fused.params["encoder"], leaves, cfg).reshape(-1, 64)
-        m, c = fused._score_mc
-        scores = h @ m + c
-    sel = (leaf_rows[:, None] * 64 + torch.arange(64)).reshape(-1)
-    got = idx["unfused"][sel].cuda()
-    mis, ties, regret = index_check("unfused vs fused", got, scores)
-    result.update(mismatches=mis, near_tie_rows_checked=ties, max_regret=regret)
-    return result
-
-
 def reference_path(grid, workdir: Path):
-    """Phase 5: the reference-arch artifact at full width, fused residual
-    block against the eager one."""
+    """Phase 5: the reference-arch artifact at full width, and its encoder's
+    features with the fused residual block against the eager one."""
     import torch
 
     from vqvdb_tpu_torch.core.artifact import load_model
     from vqvdb_tpu_torch.core.config import CodecConfig
+    from vqvdb_tpu_torch.models.vqvae import encoder_features_packed_down
     from vqvdb_tpu_torch.runtime.codec import VQCodec
 
     tree, cfg = load_model(REPO / "models" / "scalar_reference.vqmodel")
     fused = VQCodec(tree, cfg, CodecConfig(), device="cuda")
-    eager = VQCodec(tree, cfg, CodecConfig(fuse_rb16=False), device="cuda")
-    for codec in (fused, eager):
-        codec.compress(grid_subset(grid, 5000), workdir / "warm.vqvdb")
+    fused.compress(grid_subset(grid, 5000), workdir / "warm.vqvdb")
     fused.decompress(workdir / "warm.vqvdb")
     torch.cuda.synchronize()
 
@@ -682,17 +643,24 @@ def reference_path(grid, workdir: Path):
                     group_norm=ge * n)
     expect_launches("reference decode", res["decode_launches"], dequantize=n,
                     group_norm=gd * n)
-    # A/B in turns on the same card: fused (above), eager, eager, fused.
-    rates = {"fused": [res["compress_leaves_per_s"]], "eager": []}
-    for name, codec in (("eager", eager), ("eager", eager), ("fused", fused)):
-        reset_launches()
-        stats = codec.compress(grid, workdir / "ab.vqvdb")
-        expect_launches(f"reference {name} compress", read_launches(),
-                        fused_rb=n if name == "fused" else 0, score_argmin=n,
-                        group_norm=gn_steps(codec)[0] * n)
-        rates[name].append(stats["leaves_per_sec"])
-    res["compress_leaves_per_s_fused_rb16"] = rates["fused"]
-    res["compress_leaves_per_s_eager_rb16"] = rates["eager"]
+    # A/B in turns on the same card, the encoder's features of one batch:
+    # fused, eager, eager, fused (device time).
+    bs = fused.ccfg.batch_size
+    x = torch.from_numpy(grid.leaves[:bs]).cuda().to(fused.dtype)
+    rates = {"fused": [], "eager": []}
+    with torch.inference_mode():
+        for name in ("fused", "eager", "eager", "fused"):
+            def features(rb16=name == "fused"):
+                return encoder_features_packed_down(fused.params["encoder"], fused._folded_down,
+                                                    x, cfg, fuse_rb16=rb16)
+            reset_launches()
+            features()
+            expect_launches(f"reference {name} features", read_launches(),
+                            fused_rb=1 if name == "fused" else 0,
+                            group_norm=ge + (0 if name == "fused" else 2))
+            rates[name].append(bs / cuda_ms(features, iters=20) * 1e3)
+    res["features_leaves_per_s_fused_rb16"] = rates["fused"]
+    res["features_leaves_per_s_eager_rb16"] = rates["eager"]
     return tree, cfg, fused, res
 
 
@@ -1446,8 +1414,9 @@ def deep_rows_phase(seed: int, grid, workdir: Path):
     reaches, each on a path of a derived model (`derived_model`), counters
     reset just before the path and read just after:
       deep160 (encoder width 160, latent depth 160, f32): compress, the
-        score kernel on f32 rows of depth 160 (streamed depth); unfused,
-        the nearest-code kernel at D = 160 (streamed depth);
+        score kernel on f32 rows of depth 160 (streamed depth); then the
+        projection of its encoder and the nearest-code kernel at D = 160
+        (streamed depth) on the first 4,096 leaves;
       wide1024 (encoder width 1024, bf16): compress, the score kernel on
         bf16 rows of depth 1024 (streamed depth);
       d20 (latent depth 20, bf16): decompress, the dequantize kernel on
@@ -1465,8 +1434,6 @@ def deep_rows_phase(seed: int, grid, workdir: Path):
     res, codecs = {}, {}
     for label, width, dim, opts, leaves, kernel in (
             ("deep160", 160, 160, dict(compute_dtype="float32"), data, "score_argmin"),
-            ("deep160_unfused", 160, 160,
-             dict(compute_dtype="float32", fuse_proj_quantize=False), data, "nearest_indices"),
             ("wide1024", 1024, 128, {}, grid_subset(grid, 4096), "score_argmin"),
             ("d20", 64, 20, {}, data, "score_argmin")):
         tree, cfg = derived_model(seed + width + dim, width, dim)
@@ -1508,9 +1475,15 @@ def deep_rows_phase(seed: int, grid, workdir: Path):
             rows.append(score_argmin_row(
                 name, h_f32.reshape(-1, f), h_bf16.reshape(-1, f), *codec._score_mc,
                 timed=h_f32.reshape(-1, f) if label == "deep160" else None))
-        codec = codecs["deep160_unfused"]
+        codec = codecs["deep160"]
+        emb = codec.params["vq"]["embedding"]
+        reset_launches()
         z = encoder_apply(codec.params["encoder"], x, codec.mcfg).reshape(-1, 160).float()
-        rows.append(nearest_row("nearest_d160", z, codec.params["vq"]["embedding"]))
+        q.fused_nearest_indices(z, emb)
+        res["deep160_nearest"] = {"leaves": int(x.shape[0]), "launches": read_launches()}
+        expect_launches("deep160 projection + nearest-code", res["deep160_nearest"]["launches"],
+                        nearest_indices=1, group_norm=gn_steps(codec)[0])
+        rows.append(nearest_row("nearest_d160", z, emb))
         codec = codecs["d20"]
         idx = codec._encode_step(x).reshape(-1)
         rows.append(dequantize_row("dequantize_bf16_d20", idx, codec.params["vq"]["embedding"]))
@@ -2712,20 +2685,15 @@ def mesh_phase(args, tree, cfg, codec, grid, refs, workdir: Path):
 
 
 # ---------------------------------------------------------------------------
-# Phase 17: packed_stem and the folded final conv
+# Phase 17: packed_stem
 # ---------------------------------------------------------------------------
 
-FOLDED_TAIL_ATOL = 1e-5  # folded final conv vs the fused tail GEMM, f32, TF32 off
 
-
-def stem_phase(args, flag_tree, flag_cfg, grid, flag_file: Path, workdir: Path):
+def stem_phase(args, flag_cfg, grid, workdir: Path):
     """Phase 17: (1) a packed_stem model at the flagship's widths trained
     from seeded init on the card (one resident epoch, batch 2048, bf16),
     save_model -> VQCodec -> v3 round trip above its initial params' PSNR;
-    (2) its card-vs-CPU parity (phase 9's gates); (3) the flagship decoded
-    through the folded final conv (fuse_decoder_tail=False) in f32, TF32
-    off, against the fused tail, on the first 16,384 blocks of the phase-3
-    file `flag_file`."""
+    (2) its card-vs-CPU parity (phase 9's gates)."""
     import numpy as np
     import torch
 
@@ -2780,26 +2748,6 @@ def stem_phase(args, flag_tree, flag_cfg, grid, flag_file: Path, workdir: Path):
     with _no_tf32_matmul():
         out["parity"] = parity_phase("packed_stem", tree, cfg, grid)
     log(f"[stem] parity {json.dumps(out['parity'])}")
-    idx = _file_indices(flag_file)[:16384]
-    with _no_tf32_matmul():
-        fused = VQCodec(flag_tree, flag_cfg, CodecConfig(compute_dtype="float32"),
-                        device="cuda")
-        folded = VQCodec(flag_tree, flag_cfg, CodecConfig(compute_dtype="float32",
-                                                          fuse_decoder_tail=False),
-                         device="cuda")
-        reset_launches()
-        a = folded.decode_indices(idx)
-        dec = read_launches()
-        b = fused.decode_indices(idx)
-    steps = -(-idx.shape[0] // folded.ccfg.batch_size)
-    expect_launches("folded final conv decode", dec, dequantize=steps,
-                    group_norm=gn_steps(folded)[1] * steps)
-    err = float(np.abs(a - b).max())
-    if not (np.isfinite(a).all() and err <= FOLDED_TAIL_ATOL):
-        raise AssertionError(f"folded final conv vs fused tail: {err:.3g} > {FOLDED_TAIL_ATOL}")
-    out["folded_final_conv"] = {"leaves": int(idx.shape[0]), "max_abs_err_vs_fused_tail": err,
-                                "atol": FOLDED_TAIL_ATOL, "launches": dec}
-    log(f"[stem] folded_final_conv {json.dumps(out['folded_final_conv'])}")
     log(f"[phase17] {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3008,7 +2956,8 @@ def _bench_capture_launches(row: str, dense_steps: int):
 
 
 def bench_padding(turns=(64, 1024, 1024, 64)):
-    """The baseline's decode step (f32, the tail unfolded) at batch 64, which
+    """The baseline's decode step (`bench.baseline_step`: f32, the tail
+    unfolded) at batch 64, which
     `models/blocks.py` pads to one 1,024-row block, against the same step at
     1,024 rows, in turns: {batch: [leaves/s]}, ms a step, and the leaves/s
     that the padding costs at batch 64 (factor = rate at 1,024 / at 64)."""
@@ -3016,21 +2965,17 @@ def bench_padding(turns=(64, 1024, 1024, 64)):
     import torch
 
     from vqvdb_tpu_torch import bench
-    from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
-    from vqvdb_tpu_torch.runtime.codec import VQCodec
+    from vqvdb_tpu_torch.core.config import ModelConfig
 
     cfg = ModelConfig()
     params = bench.untrained_params(cfg)
     idx = np.random.default_rng(0).integers(0, 256, (max(turns), 4, 4, 4)).astype(np.uint8)
     rates, ms = {b: [] for b in turns}, {b: [] for b in turns}
     for b in turns:
-        codec = VQCodec(params, cfg, CodecConfig(batch_size=b, compute_dtype="float32",
-                                                 fuse_decoder_tail=False,
-                                                 fuse_final_conv=False), device="cuda")
         rec = {}
         with bench.f32_math():  # as the bench's baseline runs
             rates[b].append(bench.fenced_rate(
-                codec._decode_step, torch.from_numpy(idx[:b]).cuda(),
+                bench.baseline_step(params, cfg, "cuda"), torch.from_numpy(idx[:b]).cuda(),
                 bench.CARD.baseline_steps, bench.perturb_indices(256), bench.consume_sum,
                 record=rec))
         ms[b].append(rec["ms_per_step"])
@@ -3626,8 +3571,6 @@ def main() -> int:
                 log(f"[profile {label}] {json.dumps(prof)}")
 
         torch.backends.cudnn.allow_tf32 = False
-        unf = unfused_path(tree, cfg, grid_subset(grid, 16384 + 777), workdir)
-        log(f"[unfused] {json.dumps(unf)}")
     par = {}
     for label, model, data in (("scalar", (tree, cfg), grid),
                                ("scalar_reference", (ref_tree, ref_cfg), grid),
@@ -3672,7 +3615,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         mesh_res = mesh_phase(args, tree, cfg, codec, grid, refs, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
-        stem_res = stem_phase(args, tree, cfg, grid, refs["v3"], Path(tmp))
+        stem_res = stem_phase(args, cfg, grid, Path(tmp))
     with tempfile.TemporaryDirectory() as tmp:
         others = {"scalar_reference": (ref_tree, ref_cfg, ref_codec),
                   "scalar_rvq2": side["scalar_rvq2"]}
@@ -3691,7 +3634,7 @@ def main() -> int:
     launches = {"dequantize": main_res["decode_launches"]["dequantize"],
                 "score_argmin": main_res["encode_launches"]["score_argmin"],
                 "score_argmin_f32": par["scalar"]["launches"]["score_argmin"],
-                "nearest_indices": unf["launches"]["nearest_indices"]}
+                "nearest_indices": side_res["scalar_rvq2"]["encode_launches"]["nearest_indices"]}
     launches["fused_rb"] = ref_res["encode_launches"]["fused_rb"]
     # The GroupNorm kernel: phase 3 runs it at 4^3 x 64 alone; phase 7b's
     # counts by shape give the rows at the other shapes.
@@ -3705,7 +3648,7 @@ def main() -> int:
     launches["score_argmin_width128"] = side_res["vec3"]["encode_launches"]["score_argmin"]
     launches["score_argmin_k4096"] = big_res["encode_launches"]["score_argmin"]
     launches["score_argmin_f32_d160"] = deep_res["deep160"]["encode_launches"]["score_argmin"]
-    launches["nearest_d160"] = deep_res["deep160_unfused"]["encode_launches"]["nearest_indices"]
+    launches["nearest_d160"] = deep_res["deep160_nearest"]["launches"]["nearest_indices"]
     launches["score_argmin_bf16_d1024"] = deep_res["wide1024"]["encode_launches"]["score_argmin"]
     launches["dequantize_bf16_d20"] = deep_res["d20"]["decode_launches"]["dequantize"]
     launches["nearest_indices_train"] = train_res["host_loop"]["launches"]["nearest_indices"]
@@ -3722,8 +3665,6 @@ def main() -> int:
         stem_res["round_trip_trained"]["encode_launches"]["score_argmin"]
     launches["nearest_indices_packed_stem_train"] = \
         stem_res["train"]["launches"]["nearest_indices"]
-    launches["dequantize_folded_final_conv"] = \
-        stem_res["folded_final_conv"]["launches"]["dequantize"]
     # Phase 18's sixteen-entry mesh on one card: 256-row shard steps.
     many = layout_res[f"entries_{LAYOUT_ENTRIES[-1]}"]
     launches["score_argmin_layout"] = many["scalar"]["v3_encode"]["score_argmin"]

@@ -20,7 +20,6 @@ import torch
 from vqvdb_tpu.core.artifact import load_model as jax_load_model
 from vqvdb_tpu.core.config import CodecConfig as JaxCodecConfig
 from vqvdb_tpu.core.config import ModelConfig as JaxModelConfig
-from vqvdb_tpu.models.vqvae import encoder_apply as jax_encoder_apply
 from vqvdb_tpu.models.vqvae import encoder_features as jax_encoder_features
 from vqvdb_tpu.models.vqvae import init_vqvae_params
 from vqvdb_tpu.runtime.codec import VQCodec as JaxCodec
@@ -80,14 +79,12 @@ def flagship():
     return tree, cfg, jparams, jcfg, dense
 
 
-@pytest.mark.parametrize("fuse_proj", [True, False])
-def test_flagship_compress_decompress_matches_jax(tmp_path, flagship, fuse_proj):
+def test_flagship_compress_decompress_matches_jax(tmp_path, flagship):
     tree, cfg, jparams, jcfg, dense = flagship
-    codec = VQCodec(tree, cfg, CodecConfig(batch_size=BATCH, compute_dtype="float32",
-                                           fuse_proj_quantize=fuse_proj),
+    codec = VQCodec(tree, cfg, CodecConfig(batch_size=BATCH, compute_dtype="float32"),
                     device="cpu")
-    jcodec = JaxCodec(jparams, jcfg, JaxCodecConfig(
-        batch_size=BATCH, compute_dtype="float32", fuse_proj_quantize=fuse_proj))
+    jcodec = JaxCodec(jparams, jcfg, JaxCodecConfig(batch_size=BATCH,
+                                                    compute_dtype="float32"))
     grid, jgrid = LeafGrid.from_dense("density", dense), JaxLeafGrid.from_dense("density", dense)
     assert grid.num_leaves > BATCH  # a full batch and a ragged tail
     ours, theirs = tmp_path / "ours.vqvdb", tmp_path / "theirs.vqvdb"
@@ -98,19 +95,12 @@ def test_flagship_compress_decompress_matches_jax(tmp_path, flagship, fuse_proj)
     # The files differ only in index bytes of near-tie rows.
     a, b = np.frombuffer(ours.read_bytes(), np.uint8), np.frombuffer(theirs.read_bytes(), np.uint8)
     assert a.shape == b.shape
-    x = jnp.asarray(grid.leaves)
-    if fuse_proj:
-        h = np.asarray(jax_encoder_features(jparams.encoder, x, jcfg)).reshape(-1, 64)
-        m, c = jcodec._score_mc
-        scores = h @ np.asarray(m) + np.asarray(c)
-    else:
-        z = np.asarray(jax_encoder_apply(jparams.encoder, x, jcfg)).reshape(-1, 128)
-        e = np.asarray(jparams.vq.embedding)
-        scores = (e * e).sum(1)[None] - 2 * z @ e.T
+    h = np.asarray(jax_encoder_features(jparams.encoder, jnp.asarray(grid.leaves), jcfg))
+    m, c = jcodec._score_mc
+    scores = h.reshape(-1, 64) @ np.asarray(m) + np.asarray(c)
     differ, ties = _assert_indices_match(_indices(ours), _indices(theirs), scores)
     assert (a != b).sum() == differ
-    print(f"fuse_proj={fuse_proj}: {differ} of {scores.shape[0]} rows differ, "
-          f"{ties} near-tie rows")
+    print(f"{differ} of {scores.shape[0]} rows differ, {ties} near-tie rows")
 
     # Each package decodes both files; on the same indices the leaves agree.
     got, _ = codec.decompress(theirs)
@@ -123,22 +113,22 @@ def test_flagship_compress_decompress_matches_jax(tmp_path, flagship, fuse_proj)
 
 
 def test_narrow_random_model_matches_jax(rng):
-    """A random-init narrow config (D=32, K=64) through params_from_jax,
-    with the unfused decoder tail as well."""
+    """A random-init narrow config (D=32, K=64) through params_from_jax; the
+    port's decode (the folded tail) against the JAX codec's with its tail
+    folded and unfolded."""
     jcfg = JaxModelConfig(embedding_dim=32, num_embeddings=64, encoder_arch="packed")
     jparams = init_vqvae_params(jax.random.key(7), jcfg)
     tree = jax.tree.map(np.asarray, jparams._asdict())
     cfg = ModelConfig(embedding_dim=32, num_embeddings=64, encoder_arch="packed")
     leaves = LeafGrid.from_dense("d", smooth_field(seed=1, shape=(24, 24, 16))).leaves
     idx = rng.integers(0, 64, size=(leaves.shape[0], 4, 4, 4), dtype=np.uint8)
+    codec = VQCodec(tree, cfg, CodecConfig(batch_size=16, compute_dtype="float32"),
+                    device="cpu")
+    got = codec.decode_indices(idx)
     for fuse_tail in (True, False):
-        codec = VQCodec(tree, cfg, CodecConfig(batch_size=16, compute_dtype="float32",
-                                               fuse_decoder_tail=fuse_tail),
-                        device="cpu")
         jcodec = JaxCodec(jparams, jcfg, JaxCodecConfig(
             batch_size=16, compute_dtype="float32", fuse_decoder_tail=fuse_tail))
-        np.testing.assert_allclose(codec.decode_indices(idx),
-                                   np.asarray(jcodec.decode_indices(idx)), atol=ATOL)
+        np.testing.assert_allclose(got, np.asarray(jcodec.decode_indices(idx)), atol=ATOL)
     got = codec.encode_leaves(leaves)
     ref = np.asarray(jcodec.encode_leaves(leaves))
     h = np.asarray(jax_encoder_features(jparams.encoder, jnp.asarray(leaves), jcfg))

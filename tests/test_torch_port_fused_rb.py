@@ -59,7 +59,7 @@ def test_plain_matches_pallas_and_oracle_f32(rng, groups, n):
     assert torch.equal(got, wrapped)  # the wrapper on a CPU tensor is the plain version
     np.testing.assert_allclose(got.numpy(), pallas, atol=2e-5, rtol=2e-5)
     np.testing.assert_allclose(got.numpy(), oracle, atol=2e-5, rtol=2e-5)
-    # and the port's own eager block, which the codec runs with fuse_rb16=False
+    # and the port's own eager block, which training and the unfolded encoder run
     eager = blocks.residual_block(_port(p), torch.from_numpy(x), groups=groups)
     np.testing.assert_allclose(got.numpy(), eager.numpy(), atol=2e-5, rtol=2e-5)
 

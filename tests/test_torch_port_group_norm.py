@@ -241,7 +241,7 @@ def test_every_group_norm_of_a_models_inference_graphs_reaches_the_dispatch(
     enc_gn = _gn_count(codec.params["encoder"])
     dec_gn = _gn_count(codec.params["decoder"])
     fused = 2 if (cfg.encoder_arch == "reference" and cfg.variant == "scalar"
-                  and codec.ccfg.fuse_rb16 and codec._folded_down is not None) else 0
+                  and cfg.num_quantizers == 1) else 0
 
     idx = codec._encode_step(leaves)
     assert len(calls) == enc_gn - fused

@@ -1,9 +1,10 @@
 """Every other committed artifact through the port's codec against the JAX
 package's, on the CPU in f32 (the flagship is in test_torch_port_codec.py).
 
-Both codecs get the same options; for the reference arch that includes
-`fuse_rb16=True`, so the JAX side runs its Pallas residual-block kernel in
-interpret mode. The `.vqvdb` v3 files must be byte-identical except for
+Both codecs get the same batch and dtype, and the JAX codec `fuse_rb16=True`
+as well: the port's codec always fuses the reference scalar encoder's
+16-channel block, and so the JAX side runs its Pallas residual-block kernel
+in interpret mode. The `.vqvdb` v3 files must be byte-identical except for
 index bytes of near-tie rows: latent rows whose best and runner-up JAX
 scores differ by less than NEAR_TIE relative to the best (for residual-VQ,
 at the first stage where the row differs; its later stages then code
@@ -27,7 +28,12 @@ from vqvdb_tpu.vdb.grid import LeafGrid as JaxLeafGrid
 from vqvdb_tpu_torch.core.artifact import load_model
 from vqvdb_tpu_torch.core.config import CodecConfig
 from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
-from vqvdb_tpu_torch.models.vqvae import encoder_features_packed_down
+from vqvdb_tpu_torch.models.vqvae import (
+    encoder_apply,
+    encoder_features,
+    encoder_features_packed_down,
+)
+from vqvdb_tpu_torch.ops.quantize import fused_nearest_indices, fused_score_argmin
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.vdb.grid import LeafGrid, psnr
 
@@ -96,9 +102,9 @@ def _stage_scores(jcodec, jparams, jcfg, leaves, ref_idx):
 def test_artifact_compress_decompress_matches_jax(tmp_path, name):
     tree, cfg = load_model(MODELS / f"{name}.vqmodel")
     jparams, jcfg = jax_load_model(MODELS / f"{name}.vqmodel")
-    opts = dict(batch_size=BATCH, compute_dtype="float32", fuse_rb16=True)
+    opts = dict(batch_size=BATCH, compute_dtype="float32")
     codec = VQCodec(tree, cfg, CodecConfig(**opts), device="cpu")
-    jcodec = JaxCodec(jparams, jcfg, JaxCodecConfig(**opts))
+    jcodec = JaxCodec(jparams, jcfg, JaxCodecConfig(**opts, fuse_rb16=True))
     assert codec.check_latent_shape() == cfg.index_shape == tuple(jcfg.index_shape)
     dense = smooth_field(cfg.in_channels)
     grid, jgrid = LeafGrid.from_dense("field", dense), JaxLeafGrid.from_dense("field", dense)
@@ -136,25 +142,31 @@ def test_artifact_compress_decompress_matches_jax(tmp_path, name):
 
 
 def test_reference_arch_options_agree():
-    """fuse_rb16, pack_down_conv and fuse_proj_quantize are exact rewrites:
-    every combination encodes the reference artifact to the same indices
-    except near-ties of the default path's scores."""
+    """The codec's encode of the reference artifact (the strided conv folded
+    onto the packed grid, the fused 16-channel block, the projection folded
+    into the score kernel) against each rewrite undone at function level:
+    the eager block, the strided conv as it is (`encoder_features`), and the
+    projection then the nearest-code kernel. Every one gives the same
+    indices except near-ties of the codec's scores."""
     tree, cfg = load_model(MODELS / "scalar_reference.vqmodel")
     leaves = LeafGrid.from_dense("d", smooth_field(1, seed=2, shape=(24, 24, 16))).leaves
-    base = dict(batch_size=16, compute_dtype="float32")
-    default = VQCodec(tree, cfg, CodecConfig(**base), device="cpu")
-    assert default._folded_down is not None and default.ccfg.fuse_rb16
-    ref = default.encode_leaves(leaves).reshape(-1)
+    codec = VQCodec(tree, cfg, CodecConfig(batch_size=16, compute_dtype="float32"),
+                    device="cpu")
+    assert codec._folded_down is not None
+    ref = codec.encode_leaves(leaves).reshape(-1)
+    enc, x = codec.params["encoder"], torch.from_numpy(leaves)
     with torch.inference_mode():
-        feats = encoder_features_packed_down(
-            default.params["encoder"], default._folded_down,
-            torch.from_numpy(leaves), cfg, fuse_rb16=True)
-        m, c = default._score_mc
+        feats = encoder_features_packed_down(enc, codec._folded_down, x, cfg, fuse_rb16=True)
+        m, c = codec._score_mc
         ties = _near_ties((feats.reshape(-1, 32) @ m + c).numpy())
-    for opts in (dict(fuse_rb16=False), dict(pack_down_conv=False),
-                 dict(fuse_proj_quantize=False)):
-        other = VQCodec(tree, cfg, CodecConfig(**base, **opts), device="cpu")
-        if "pack_down_conv" in opts or "fuse_proj_quantize" in opts:
-            assert other._folded_down is None
-        got = other.encode_leaves(leaves).reshape(-1)
-        assert not ((got != ref) & ~ties).any(), opts
+        undone = {
+            "eager_rb16": encoder_features_packed_down(enc, codec._folded_down, x, cfg,
+                                                       fuse_rb16=False),
+            "strided_conv": encoder_features(enc, x, cfg),
+        }
+        got = {k: fused_score_argmin(h.reshape(-1, 32), codec._score_prep)
+               for k, h in undone.items()}
+        z = encoder_apply(enc, x, cfg).reshape(-1, cfg.embedding_dim).float()
+        got["nearest_code"] = fused_nearest_indices(z, codec.params["vq"]["embedding"])
+    for name, idx in got.items():
+        assert not ((idx.numpy() != ref) & ~ties).any(), name

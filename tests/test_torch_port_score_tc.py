@@ -268,22 +268,19 @@ def _same_prepared(a, b):
             and torch.equal(a.operand.view(torch.int16), b.operand.view(torch.int16)))
 
 
-@pytest.mark.parametrize("name,fuse", [("scalar", True), ("scalar", False),
-                                       ("scalar_reference", True), ("scalar_rvq2", True),
-                                       ("vec3", True)])
-def test_codec_prepares_score_operands_once(rng, name, fuse):
+@pytest.mark.parametrize("name", ["scalar", "scalar_reference", "scalar_rvq2", "vec3"])
+def test_codec_prepares_score_operands_once(rng, name):
     tree, cfg = load_model(MODELS / f"{name}.vqmodel")
-    codec = VQCodec(tree, cfg, CodecConfig(batch_size=2, compute_dtype="float32",
-                                           fuse_proj_quantize=fuse), device="cpu")
-    if codec._score_mc is not None:
+    codec = VQCodec(tree, cfg, CodecConfig(batch_size=2, compute_dtype="float32"),
+                    device="cpu")
+    if cfg.num_quantizers == 1:
         fresh = q.prepare_scores(*codec._score_mc)
         assert _same_prepared(codec._score_prep, fresh) and codec._stage_prep is None
         f, k = codec._score_mc[0].shape
         assert fresh.operand.shape == (1, -(-f // 32), 3, 2, k // 8, 2, 8, 8)
     else:
         books = codec.params["vq"]["embedding"]
-        books = books if books.dim() == 3 else books[None]
-        assert codec._score_prep is None
+        assert codec._score_mc is None and codec._score_prep is None
         assert len(codec._stage_prep) == cfg.num_quantizers == books.shape[0]
         for prep, book in zip(codec._stage_prep, books):
             assert _same_prepared(prep, q.prepare_codebook(book))

@@ -1,16 +1,14 @@
-"""The packed_stem encoder and the folded final conv in the port, against the
-JAX package on the CPU in f32.
+"""The packed_stem encoder in the port, against the JAX package on the CPU
+in f32.
 
 packed_stem (`models/vqvae.py`): an 8^3 stage (k3 conv C -> W/8, GroupNorm
 of W/16 groups, relu) before the space-to-channel pack, then a k1 stem conv.
-`fold_final_conv` (`ops/subpixel.py`): the decoder's final k3 conv folded
-before the pixel shuffle, which the codecs decode through with
-`fuse_decoder_tail=False`. Models are JAX-initialised and carried across
-with `params_from_jax`. Tolerances: features and leaves within 1e-5 (f32
-sums in another order); gradients within 2e-5 of the tree's largest entry
+Models are JAX-initialised and carried across with `params_from_jax`.
+Tolerances: features and leaves within 1e-5 (f32 sums in another order);
+gradients within 2e-5 of the tree's largest entry
 (tests/test_torch_port_train.py); indices equal except where the JAX scores'
 best two are within 1e-5 relative, and files equal byte for byte on equal
-indices; the folded weights within 1e-6 of JAX's (both fold in f64).
+indices.
 """
 
 import dataclasses
@@ -24,18 +22,15 @@ import torch
 from vqvdb_tpu.core import artifact as jartifact
 from vqvdb_tpu.core.config import CodecConfig as JaxCodecConfig
 from vqvdb_tpu.core.config import ModelConfig as JaxModelConfig
-from vqvdb_tpu.models import blocks as jblocks
 from vqvdb_tpu.models import vqvae as jvqvae
-from vqvdb_tpu.ops.subpixel import fold_final_conv as jax_fold_final_conv
 from vqvdb_tpu.runtime.codec import VQCodec as JaxCodec
 from vqvdb_tpu.train import train as jtrain
 from vqvdb_tpu_torch.cli import main as cli
 from vqvdb_tpu_torch.core.config import CodecConfig, ModelConfig
 from vqvdb_tpu_torch.core.weights import params_from_jax, params_to_jax
 from vqvdb_tpu_torch.format.vqvdb import VqvdbReader
-from vqvdb_tpu_torch.models import blocks, vqvae
+from vqvdb_tpu_torch.models import vqvae
 from vqvdb_tpu_torch.models.quantizer import VQState
-from vqvdb_tpu_torch.ops.subpixel import fold_final_conv, shuffle_channels_to_space
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.train import train
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
@@ -124,14 +119,13 @@ def _indices(path):
         return r.read_grid()[1]
 
 
-@pytest.mark.parametrize("fuse_proj", [True, False])
-def test_packed_stem_codecs_match_jax(rng, tmp_path, fuse_proj):
+def test_packed_stem_codecs_match_jax(rng, tmp_path):
     """A JAX-initialised packed_stem model through both codecs: indices equal
     off near-ties, the files equal but for those rows' index bytes, and each
     package's decode of the JAX file within 1e-5."""
     kw = dict(STEM, embedding_dim=32, num_embeddings=64)
     jp, jcfg, tree, cfg = _models(kw, seed=4)
-    opts = dict(batch_size=16, compute_dtype="float32", fuse_proj_quantize=fuse_proj)
+    opts = dict(batch_size=16, compute_dtype="float32")
     codec = VQCodec(tree, cfg, CodecConfig(**opts), device="cpu")
     jcodec = JaxCodec(jp, jcfg, JaxCodecConfig(**opts))
     n = 37
@@ -191,53 +185,3 @@ def test_cli_trains_and_exports_packed_stem_for_jax(tmp_path, capsys, monkeypatc
     leaves = _leaves(np.random.default_rng(2), 4)
     assert np.asarray(JaxCodec(jparams, jcfg, JaxCodecConfig(batch_size=4)).encode_leaves(
         leaves)).shape == (4, 4, 4, 4)
-
-
-@pytest.mark.parametrize("cout", [1, 3])
-def test_fold_final_conv_matches_jax(rng, cout):
-    """As tests/test_subpixel.py: the folded weights equal JAX's, and
-    shuffle(conv'(h)) equals conv(shuffle(h)) on random data, every border."""
-    w = rng.standard_normal((3, 3, 3, 32, cout)).astype(np.float32) * 0.3
-    b = rng.standard_normal(cout).astype(np.float32)
-    mine, theirs = fold_final_conv(w, b), jax_fold_final_conv(w, b)
-    np.testing.assert_allclose(mine["w"].permute(2, 3, 4, 1, 0).numpy(),
-                               np.asarray(theirs["w"]), atol=1e-6)
-    np.testing.assert_array_equal(mine["b"].numpy(), np.asarray(theirs["b"]))
-    h = rng.standard_normal((3, 4, 4, 4, 256)).astype(np.float32)
-    conv = {"w": torch.from_numpy(w.transpose(4, 3, 0, 1, 2).copy()), "b": torch.from_numpy(b)}
-    ref = blocks.conv3d(conv, blocks.pixel_shuffle_3d(torch.from_numpy(h), 2), padding=1)
-    got = shuffle_channels_to_space(blocks.conv3d(mine, torch.from_numpy(h), padding=1))
-    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=1e-4, atol=1e-5)
-    jgot = jblocks.pixel_shuffle_3d(jblocks.conv3d(theirs, jnp.asarray(h), padding=1), 2)
-    np.testing.assert_allclose(got.numpy(), np.asarray(jgot), rtol=1e-4, atol=1e-5)
-    with pytest.raises(ValueError, match="k3"):
-        fold_final_conv(np.zeros((1, 1, 1, 32, 1), np.float32), np.zeros(1, np.float32))
-
-
-@pytest.mark.parametrize("kw", [dict(embedding_dim=32, num_embeddings=64, encoder_arch="packed"),
-                                dict(in_channels=3, embedding_dim=32, num_embeddings=64,
-                                     encoder_arch="packed_stem")],
-                         ids=["scalar", "vec3_stem"])
-@pytest.mark.parametrize("fold", [True, False], ids=["folded_final", "three_ops"])
-def test_unfused_tail_decode_matches_jax(rng, tmp_path, kw, fold):
-    """fuse_decoder_tail=False, with the final conv folded (the default) or
-    not: the port's decode within 1e-5 of the JAX codec's on the same
-    indices, and the dense decode the sparse one's bit for bit."""
-    from vqvdb_tpu_torch.runtime.dense import decode_to_dense
-
-    jp, jcfg, tree, cfg = _models(kw, seed=6)
-    opts = dict(batch_size=16, compute_dtype="float32", fuse_decoder_tail=False,
-                fuse_final_conv=fold)
-    codec = VQCodec(tree, cfg, CodecConfig(**opts), device="cpu")
-    jcodec = JaxCodec(jp, jcfg, JaxCodecConfig(**opts))
-    assert (codec._folded_final is not None) == fold and codec._folded_tail is None
-    idx = rng.integers(0, 64, (21, 4, 4, 4)).astype(np.uint8)
-    got = codec.decode_indices(idx)
-    np.testing.assert_allclose(got, np.asarray(jcodec.decode_indices(idx)), atol=ATOL)
-    tail = VQCodec(tree, cfg, CodecConfig(batch_size=16, compute_dtype="float32"),
-                   device="cpu")
-    np.testing.assert_allclose(got, tail.decode_indices(idx), atol=ATOL)
-    origins = (np.stack(np.unravel_index(np.arange(21), (3, 7, 1)), 1) * 8).astype(np.int32)
-    dense, _ = decode_to_dense(codec, idx, origins)
-    host, _ = LeafGrid("d", origins, got).to_dense()
-    np.testing.assert_array_equal(dense.numpy(), host)

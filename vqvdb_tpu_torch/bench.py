@@ -42,8 +42,10 @@ initialisers: a rate does not depend on the weights):
                    (host clock, the host's uploads and readbacks included);
                    and their device programs (`dense_decode_loop`,
                    `dense_encode_loop`) captured and replayed as above;
-  baseline         the reference's execution shape: batch 64, f32, the
-                   decoder tail unfolded, a fresh codec and a fresh capture
+  baseline         the reference's execution shape (`baseline_step`):
+                   batch 64, f32, the dequantize kernel and the plain
+                   decoder (`decoder_pre_tail`, then the tail's three ops
+                   unfolded), fresh weights on the card and a fresh capture
                    for each of 3 runs (libraries choose their plans again);
                    the median, with every run and the relative spread.
 The whole bench runs with TF32 off in cuDNN and cuBLAS, so f32 is f32.
@@ -67,8 +69,9 @@ import torch
 
 from vqvdb_tpu_torch.core.artifact import load_model_config
 from vqvdb_tpu_torch.core.config import LEAF_DIM, CodecConfig, ModelConfig
-from vqvdb_tpu_torch.core.weights import params_to_jax, resolve_device
-from vqvdb_tpu_torch.models.vqvae import init_vqvae_params
+from vqvdb_tpu_torch.core.weights import params_from_jax, params_to_jax, resolve_device
+from vqvdb_tpu_torch.models.vqvae import decoder_pre_tail, decoder_tail, init_vqvae_params
+from vqvdb_tpu_torch.ops.quantize import fused_dequantize
 from vqvdb_tpu_torch.parallel.mesh import make_mesh
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.runtime.dense import (
@@ -341,6 +344,22 @@ def untrained_params(cfg: ModelConfig) -> Dict:
     return params_to_jax(init_vqvae_params(torch.Generator().manual_seed(0), cfg))
 
 
+def baseline_step(params: Dict, mcfg: ModelConfig, dev) -> Callable:
+    """The baseline's decode step on `dev` in f32: [B,4,4,4] indices ->
+    the dequantize kernel -> `decoder_pre_tail` -> `decoder_tail` (up_conv,
+    pixel shuffle, final conv, head) -> [B,8,8,8,C]. `params` is a
+    JAX-layout tree of a single-stage model."""
+    p = params_from_jax(params, mcfg, dev)
+    dec, book = p["decoder"], p["vq"]["embedding"]
+
+    @torch.inference_mode()
+    def step(idx: torch.Tensor) -> torch.Tensor:
+        z = fused_dequantize(idx.reshape(-1), book).reshape(
+            idx.shape + (mcfg.embedding_dim,))
+        return decoder_tail(dec, decoder_pre_tail(dec, z, mcfg), mcfg)
+    return step
+
+
 def _dense_rows(params, mcfg, sz: Sizes, rng, dev, checks) -> Dict[str, float]:
     """The four dense rows (bench.py's): end to end on the host's clock,
     then the device programs."""
@@ -479,15 +498,12 @@ def _run(dev, on_card: bool, sz: Sizes, checks: List[Dict]) -> Dict:
         del cdec, crvq
         extra.update(_dense_rows(params, mcfg, sz, rng, dev, checks))
 
-    # The reference-shaped baseline: batch 64, f32, the tail unfolded; a
-    # fresh codec and capture each run.
+    # The reference-shaped baseline: batch 64, f32, the tail unfolded; fresh
+    # weights and capture each run.
     idx_base = idx[:sz.baseline_batch]
     base_runs = []
     for s in range(BASELINE_RUNS):
-        base = VQCodec(params, mcfg, CodecConfig(
-            batch_size=sz.baseline_batch, compute_dtype="float32",
-            fuse_decoder_tail=False, fuse_final_conv=False), device=dev)
-        base_runs.append(rate(f"baseline_{s + 1}", base._decode_step, idx_base,
+        base_runs.append(rate(f"baseline_{s + 1}", baseline_step(params, mcfg, dev), idx_base,
                               sz.baseline_steps, perturb_indices(k)))
     baseline = statistics.median(base_runs)
     spread = (max(base_runs) - min(base_runs)) / baseline if baseline else 0.0

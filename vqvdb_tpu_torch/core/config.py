@@ -6,7 +6,12 @@ mean something on the card. The JAX package's `use_pallas` and
 `use_pallas_dequant` (its kernel switches: on a CUDA tensor the codec
 always runs the hand-written kernels), `split_conv_in` and `donate_buffers`
 (XLA scheduling and buffer donation) and `param_dtype` (read by no JAX
-code path) have no counterpart here.
+code path) have no counterpart here, nor have its five switches between
+exact rewrites of the model step (the decoder tail, the final conv, the
+projection, the strided conv, the 16-channel residual block): the port's
+codec runs one inference path per model, the one the JAX defaults select
+but with the reference scalar encoder's 16-channel block fused
+(`runtime/codec.py`).
 """
 
 from __future__ import annotations
@@ -74,33 +79,10 @@ class CodecConfig:
     batch_size: leaves per device step; every step runs at exactly this
         size (the ragged tail is zero-padded and cropped on the host).
     compute_dtype: conv/GEMM precision of the model graph.
-    fuse_decoder_tail: run up_conv -> pixel shuffle -> final conv as one
-        folded GEMM (ops/tail.py).
-    fuse_final_conv: with fuse_decoder_tail off, run the final conv folded
-        before the shuffle (ops/subpixel.py); both off run the three ops in
-        turn.
-    fuse_proj_quantize: fold the encoder's 1x1 projection into the
-        quantizer score GEMM (score-argmin kernel); off runs the projection
-        and then the nearest-code kernel.
-    pack_down_conv: run the reference encoder's strided conv as a k3 conv
-        on the space-to-channel grid (ops/packed.py). As in the JAX
-        package it takes effect only together with the folded projection
-        (`fuse_proj_quantize` on a single-stage model) and has no effect
-        on the packed encoders.
-    fuse_rb16: run the reference scalar encoder's 16-channel residual
-        block as one kernel (ops/fused_rb.py) on the `pack_down_conv`
-        path. The JAX package defaults this to off; here the card path
-        runs the hand-written kernel unless the caller turns it off,
-        which selects the eager `blocks.residual_block`.
     """
 
     batch_size: int = 4096
     compute_dtype: str = "bfloat16"
-    fuse_decoder_tail: bool = True
-    fuse_final_conv: bool = True
-    fuse_proj_quantize: bool = True
-    pack_down_conv: bool = True
-    fuse_rb16: bool = True
 
     def __post_init__(self):
         if self.compute_dtype not in ("bfloat16", "float32"):

@@ -24,8 +24,7 @@ strided conv as it is or folded onto the packed grid), and both decoders.
 
 Inference without the codec's folds: `encode_to_indices` /
 `decode_from_indices` (the export validation and the interop tests call
-them); `decoder_tail_folded` is the tail with the final conv folded before
-the shuffle (`ops/subpixel.py`). Training: `init_vqvae_params` draws a params
+them). Training: `init_vqvae_params` draws a params
 tree (encoder / decoder / vq, convs OIDHW channels-last, the JAX layout
 otherwise) from a `torch.Generator`; `vqvae_forward` is the training
 forward with the EMA quantizer. Training runs the eager residual block, as
@@ -205,17 +204,6 @@ def decoder_tail(params: Params, h: torch.Tensor,
         h = blocks.pixel_shuffle_3d(h, 2)
         h = blocks.conv3d(params["final"], h, padding=1)
         return head_activation(h, cfg)
-
-
-def decoder_tail_folded(up_conv: Params, folded_final: Params, h: torch.Tensor,
-                        cfg: ModelConfig) -> torch.Tensor:
-    """decoder_tail with the final conv folded before the shuffle
-    (`ops/subpixel.py::fold_final_conv`): up_conv -> k3 conv on the 4^3
-    grid (C_out * 8 channels) -> pixel shuffle -> head activation."""
-    with span("decode/tail"):
-        h = blocks.conv3d(up_conv, h, padding=1)
-        y = blocks.conv3d(folded_final, h, padding=1)
-        return head_activation(blocks.pixel_shuffle_3d(y, 2), cfg)
 
 
 def decoder_apply(params: Params, z: torch.Tensor,

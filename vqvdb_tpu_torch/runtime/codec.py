@@ -11,17 +11,13 @@ loop runs synchronously.
 
 Encode:  leaves -> encoder features -> score-argmin kernel (the 1x1
          projection folded in) -> indices [B,4,4,4]. The reference
-         encoder runs its strided conv folded onto the packed grid
-         (`pack_down_conv`) and, for scalar input, its 16-channel residual
-         block as the fused kernel (`fuse_rb16`).
-         With `fuse_proj_quantize=False`: projection -> nearest-code kernel.
-         Residual-VQ models (S stages): projection -> per stage the
-         nearest-code and dequantize kernels -> indices [B,4,4,4,S].
+         encoder runs its strided conv folded onto the packed grid and,
+         for scalar input, its 16-channel residual block as the fused
+         kernel. Residual-VQ models (S stages): encoder -> projection ->
+         per stage the nearest-code and dequantize kernels -> indices
+         [B,4,4,4,S].
 Decode:  indices -> dequantize kernel (once per stage, rows summed) ->
-         decoder pre-tail -> folded tail GEMM + sigmoid / tanh. With
-         `fuse_decoder_tail=False`: up_conv -> the final conv folded before
-         the shuffle (`fuse_final_conv`, ops/subpixel.py), or the three
-         tail ops with both off.
+         decoder pre-tail -> folded tail GEMM + sigmoid / tanh.
 
 Indices are u8 for K <= 256; for larger codebooks u16 on the host (int16
 bits in the pinned buffers) and int32 on the card. Files: v3 by default,
@@ -44,7 +40,8 @@ landed in the output grid, over rows decoded) and `pinned_pool_growth`
 
 `VQCodec.profiler` (`utils/profiler.py`) times each stage on the host clock
 and counts it: the constructor's `init/weights`, `init/tail_fold`,
-`init/score_operand`, `init/down_fold` and `init/replicate`; per batch
+`init/score_operand`, `init/down_fold` (the reference encoders of
+single-stage models) and `init/replicate` (with a mesh); per batch
 `host/stage_in` (the copy into the pinned input), `host/pad` (the ragged
 tail zeroed), `device/dispatch` (the upload, the device steps and the
 readback enqueued), `device/readback_wait` (the host waiting for a batch's
@@ -88,8 +85,6 @@ from vqvdb_tpu_torch.models.quantizer import rvq_dequantize, rvq_indices
 from vqvdb_tpu_torch.models.vqvae import (
     check_tree,
     decoder_pre_tail,
-    decoder_tail,
-    decoder_tail_folded,
     encoder_apply,
     encoder_features,
     encoder_features_packed_down,
@@ -99,12 +94,10 @@ from vqvdb_tpu_torch.ops.packed import fold_strided_conv
 from vqvdb_tpu_torch.ops.quantize import (
     fold_proj_into_scores,
     fused_dequantize,
-    fused_nearest_indices,
     fused_score_argmin,
     prepare_codebook,
     prepare_scores,
 )
-from vqvdb_tpu_torch.ops.subpixel import fold_final_conv
 from vqvdb_tpu_torch.ops.tail import apply_decoder_tail, fold_decoder_tail
 from vqvdb_tpu_torch.parallel.distributed import all_gather_rows
 from vqvdb_tpu_torch.parallel.mesh import Mesh, make_sharded_encode, replicate, shard_batch
@@ -172,9 +165,9 @@ class VQCodec:
     `device` (default `cuda`; without a card, pass `device="cpu"` or the
     constructor raises). The exact weight rewrites (folded decoder tail,
     folded projection scores and the score kernel's split operand, packed
-    down conv) are computed once here. `profiler` (default: a new one)
-    times the constructor's and each batch's stages (the module's
-    docstring names them).
+    down conv; or a residual-VQ model's prepared codebooks) are computed
+    once here. `profiler` (default: a new one) times the constructor's and
+    each batch's stages (the module's docstring names them).
     """
 
     def __init__(self, params: Dict, model_config: ModelConfig,
@@ -201,25 +194,17 @@ class VQCodec:
             self.dtype = self.ccfg.torch_dtype
             # The decode codebook is cast to the compute dtype before the lookup.
             self._codebook = self.params["vq"]["embedding"].to(self.dtype)
-        self._folded_tail = self._folded_final = None
-        if self.ccfg.fuse_decoder_tail or self.ccfg.fuse_final_conv:
-            with prof("init/tail_fold"):
-                if self.ccfg.fuse_decoder_tail:
-                    self._folded_tail = fold_decoder_tail(self.params["decoder"],
-                                                          self.mcfg)
-                else:
-                    fin = params["decoder"]["final"]
-                    self._folded_final = {k: v.to(self.device) for k, v in fold_final_conv(
-                        np.asarray(fin["w"]), np.asarray(fin["b"])).items()}
+        with prof("init/tail_fold"):
+            self._folded_tail = fold_decoder_tail(self.params["decoder"], self.mcfg)
         # Residual-VQ needs the latent itself for its later stages, so the
         # projection folds into the scores only for a single-stage model.
         self._score_mc = None
         # What the score kernel takes instead of M or a codebook (M split
         # into bf16 terms in its shared-memory order), made once here: for
-        # the folded scores, or else for each quantizer stage's codebook.
+        # the folded scores, or for each residual-VQ stage's codebook.
         self._score_prep = self._stage_prep = None
         with prof("init/score_operand"):
-            if self.ccfg.fuse_proj_quantize and self.mcfg.num_quantizers == 1:
+            if self.mcfg.num_quantizers == 1:
                 proj = params["encoder"]["proj"]
                 m, c = fold_proj_into_scores(
                     np.asarray(proj["w"]), np.asarray(proj["b"]),
@@ -227,14 +212,12 @@ class VQCodec:
                 self._score_mc = (m.to(self.device), c.to(self.device))
                 self._score_prep = prepare_scores(*self._score_mc)
             else:
-                books = self.params["vq"]["embedding"]
-                self._stage_prep = [prepare_codebook(e) for e in
-                                    (books if books.dim() == 3 else books[None])]
+                self._stage_prep = [prepare_codebook(e)
+                                    for e in self.params["vq"]["embedding"]]
         # As in the JAX package, the packed down conv rides on the folded
         # projection's encode path.
         self._folded_down = None
-        if (self.ccfg.pack_down_conv and self._score_mc is not None
-                and self.mcfg.encoder_arch == "reference"):
+        if self._score_mc is not None and self.mcfg.encoder_arch == "reference":
             with prof("init/down_fold"):
                 down = params["encoder"]["down"]
                 self._folded_down = {
@@ -243,9 +226,8 @@ class VQCodec:
         # What the device steps read, per device: on a mesh each local device
         # holds a copy of the first device's bits.
         consts = {"params": self.params, "codebook": self._codebook,
-                  "folded_tail": self._folded_tail, "folded_final": self._folded_final,
-                  "score_prep": self._score_prep, "stage_prep": self._stage_prep,
-                  "folded_down": self._folded_down}
+                  "folded_tail": self._folded_tail, "score_prep": self._score_prep,
+                  "stage_prep": self._stage_prep, "folded_down": self._folded_down}
         self._consts = {self.device: consts}
         if mesh is not None:
             with prof("init/replicate"):
@@ -264,9 +246,8 @@ class VQCodec:
         r = self._consts[x.device]
         enc = r["params"]["encoder"]
         if r["folded_down"] is not None:
-            return encoder_features_packed_down(
-                enc, r["folded_down"], x, self.mcfg,
-                fuse_rb16=self.ccfg.fuse_rb16)
+            return encoder_features_packed_down(enc, r["folded_down"], x, self.mcfg,
+                                                fuse_rb16=True)
         return encoder_features(enc, x, self.mcfg)
 
     @torch.inference_mode()
@@ -276,19 +257,16 @@ class VQCodec:
         r = self._consts[leaves.device]
         x = leaves.to(self.dtype)
         b = x.shape[0]
-        fused = r["score_prep"] is not None
+        rvq = self.mcfg.num_quantizers > 1
         with span("encode/features"):
-            h = self._features(x) if fused else encoder_apply(r["params"]["encoder"], x,
-                                                              self.mcfg)
-        with span("encode/score_argmin" if fused else "encode/quantize"):
-            if fused:
-                idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), r["score_prep"])
-            else:
+            h = (encoder_apply(r["params"]["encoder"], x, self.mcfg) if rvq
+                 else self._features(x))
+        with span("encode/quantize" if rvq else "encode/score_argmin"):
+            if rvq:
                 flat = h.reshape(-1, self.mcfg.embedding_dim).to(torch.float32)
-                if self.mcfg.num_quantizers > 1:
-                    idx = rvq_indices(flat, r["params"]["vq"]["embedding"], r["stage_prep"])
-                else:
-                    idx = fused_nearest_indices(flat, r["stage_prep"][0])
+                idx = rvq_indices(flat, r["params"]["vq"]["embedding"], r["stage_prep"])
+            else:
+                idx = fused_score_argmin(h.reshape(-1, h.shape[-1]), r["score_prep"])
             idx = idx.reshape((b,) + self.mcfg.index_shape)
             return idx.to(torch.uint8) if self.mcfg.num_embeddings <= 256 else idx
 
@@ -305,13 +283,8 @@ class VQCodec:
             else:
                 z = fused_dequantize(indices.reshape(-1), r["codebook"])
             z = z.reshape((b,) + self.mcfg.latent_shape + (self.mcfg.embedding_dim,))
-        dec = r["params"]["decoder"]
-        h = decoder_pre_tail(dec, z, self.mcfg)
-        if r["folded_tail"] is not None:
-            return apply_decoder_tail(r["folded_tail"], h, self.mcfg)
-        if r["folded_final"] is not None:
-            return decoder_tail_folded(dec["up_conv"], r["folded_final"], h, self.mcfg)
-        return decoder_tail(dec, h, self.mcfg)
+        h = decoder_pre_tail(r["params"]["decoder"], z, self.mcfg)
+        return apply_decoder_tail(r["folded_tail"], h, self.mcfg)
 
     # -- latent-shape self-check -----------------------------------------
     def check_latent_shape(self) -> Tuple[int, ...]:

@@ -23,11 +23,12 @@ the CPU, a device stage does nothing.
 The codec's stages (`runtime/codec.py`, per batch unless said):
 
   init/weights          the weights onto the device (once, in the constructor)
-  init/tail_fold        the decoder tail folded into one GEMM, or the final
-                        conv folded before the shuffle (once)
+  init/tail_fold        the decoder tail folded into one GEMM (once)
   init/score_operand    the projection folded into the scores and the score
-                        kernel's split operand, or the codebooks' (once)
-  init/down_fold        the strided conv folded onto the packed grid (once)
+                        kernel's split operand, or a residual-VQ model's
+                        prepared codebooks (once)
+  init/down_fold        the strided conv of a single-stage model's reference
+                        encoder folded onto the packed grid (once)
   init/replicate        the constants copied to every device of a mesh (once)
   host/stage_in         the batch copied into the pinned input buffers
   host/pad              the ragged tail's padding zeroed
