@@ -48,6 +48,15 @@ Phases, in this order; any failure raises and the script exits non-zero:
      batch, 7 per batch of upstream's vec3 encoder (`vec3_upstream`), 3 per
      reference-arch encode batch. Every phase's launch checks count the
      kernel too (`gn_steps`: one launch per GroupNorm of a step).
+  7c. the decoder's head (`csrc/decoder_head.cu`): the kernel pair at the
+     flagship's (4,096 x 4^3 x 64 -> 8^3 x 1) and vec3's (4^3 x 128 ->
+     8^3 x 3) shapes, in bf16 (tensor cores) and in f32 (CUDA cores), fed
+     by each codec's trunk on seeded indices, against its plain version
+     (within 2e-3 in bf16, PARITY_ATOL in f32), a leaf's bits alone,
+     shifted and among 4,097; kernel, plain, operations-bound and library
+     (the f32 `torch.matmul` the port ran before) times and the wrapper's
+     host microseconds a call. Every phase's launch checks count it too
+     (`HEAD_LAUNCHES` a decode step, either dtype).
   8. (none: the codec has one encode path; phases 6 and 13 run the
      nearest-code kernel)
   9. parity: 1,024 leaves through a `cuda` and a `cpu` codec in f32 (TF32
@@ -519,6 +528,7 @@ def log_kernel_rows(rows):
 
 def _wrappers():
     from vqvdb_tpu_torch.ops import quantize as q
+    from vqvdb_tpu_torch.ops.decoder_head import decoder_head_fused
     from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
     from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
 
@@ -526,7 +536,8 @@ def _wrappers():
             "score_argmin": q.fused_score_argmin,
             "nearest_indices": q.fused_nearest_indices,
             "fused_rb": residual_block_fused,
-            "group_norm": group_norm_relu_fused}
+            "group_norm": group_norm_relu_fused,
+            "decoder_head": decoder_head_fused}
 
 
 def gn_steps(codec):
@@ -543,6 +554,10 @@ def gn_steps(codec):
 
     fused = codec._folded_down is not None and codec.mcfg.variant == "scalar"
     return count(codec.params["encoder"]) - 2 * fused, count(codec.params["decoder"])
+
+
+# The head kernel's launches in one decode step: the gate, then the product.
+HEAD_LAUNCHES = 2
 
 
 def reset_launches():
@@ -616,7 +631,7 @@ def main_path(tree, cfg, grid, workdir: Path):
     expect_launches("main path encode", result["encode_launches"], score_argmin=n,
                     group_norm=ge * n)
     expect_launches("main path decode", result["decode_launches"], dequantize=n,
-                    group_norm=gd * n)
+                    group_norm=gd * n, decoder_head=HEAD_LAUNCHES * n)
     return codec, result
 
 
@@ -642,7 +657,7 @@ def reference_path(grid, workdir: Path):
     expect_launches("reference encode", res["encode_launches"], fused_rb=n, score_argmin=n,
                     group_norm=ge * n)
     expect_launches("reference decode", res["decode_launches"], dequantize=n,
-                    group_norm=gd * n)
+                    group_norm=gd * n, decoder_head=HEAD_LAUNCHES * n)
     # A/B in turns on the same card, the encoder's features of one batch:
     # fused, eager, eager, fused (device time).
     bs = fused.ccfg.batch_size
@@ -695,7 +710,7 @@ def side_paths(seed: int, n_leaves: int, grid, workdir: Path):
             expect_launches(f"{label} encode", res["encode_launches"], score_argmin=n,
                             group_norm=ge * n)
         expect_launches(f"{label} decode", res["decode_launches"], dequantize=s * n,
-                        group_norm=gd * n)
+                        group_norm=gd * n, decoder_head=HEAD_LAUNCHES * n)
         out[label] = res
         codecs[label] = (tree, cfg, codec)
     return codecs, vgrid, out
@@ -1037,6 +1052,80 @@ def group_norm_phase(vec_codec, vgrid, ref_codec, grid, workdir: Path):
     return res, group_norm_rows(0)
 
 
+def decoder_head_rows(codec, vec_codec):
+    """Phase 7c: the head kernel (`csrc/decoder_head.cu`) at each decode
+    cell's shape, 4,096 leaves of the flagship (4^3 x 64 -> 8^3 x 1) and of
+    vec3 (4^3 x 128 -> 8^3 x 3), fed by the (bf16) codec's trunk on seeded
+    indices, in bf16 and widened to f32 (`_f32` rows): against the plain
+    version, a leaf's bits alone, among 4,097 and shifted by one; times
+    beside the operations bound (tensor cores in bf16, CUDA cores in f32),
+    the plain version's and the f32 product the port ran before
+    (`torch.matmul` of the f32 features and the operator, rounded to bf16
+    for bf16 features) as library_ms; the wrapper's host time to enqueue a
+    call (`host_us`, median of 20 calls each after a sync)."""
+    import numpy as np
+    import torch
+
+    from vqvdb_tpu_torch.models.vqvae import decoder_trunk
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+    from vqvdb_tpu_torch.ops.quantize import fused_dequantize
+
+    rows = []
+    for name, c, dtype in (("decoder_head_4x64", codec, torch.bfloat16),
+                           ("decoder_head_4x128", vec_codec, torch.bfloat16),
+                           ("decoder_head_4x64_f32", codec, torch.float32),
+                           ("decoder_head_4x128_f32", vec_codec, torch.float32)):
+        cfg = c.mcfg
+        head = c._head if dtype == c.dtype else dh.prepare_head(c.params["decoder"], cfg, dtype)
+        plain = dh.prepare_head(c.params["decoder"], cfg, torch.float32)
+        atol = 2e-3 if dtype == torch.bfloat16 else PARITY_ATOL
+        idx = torch.from_numpy(np.random.default_rng(7).integers(
+            0, cfg.num_embeddings, (4097,) + cfg.index_shape).astype(np.int32)).cuda()
+        with torch.inference_mode():
+            z = fused_dequantize(idx.reshape(-1), c._codebook).reshape(
+                (4097,) + cfg.latent_shape + (cfg.embedding_dim,))
+            h = decoder_trunk(c.params["decoder"], z, cfg).to(dtype)
+            got = dh.decoder_head_fused(head, h, cfg)
+            want = dh.decoder_head_plain(plain, h, cfg)
+            bits = {"alone": torch.equal(dh.decoder_head_fused(head, h[:1], cfg), got[:1]),
+                    "shifted": torch.equal(dh.decoder_head_fused(head, h[1:], cfg), got[1:]),
+                    "batch": torch.equal(dh.decoder_head_fused(head, h[:4096], cfg),
+                                         got[:4096])}
+            err = (got - want).abs().max().item()
+            equal = (got == want).float().mean().item()
+            if not (all(bits.values()) and err < atol and got.isfinite().all()):
+                raise AssertionError(f"{name}: max abs {err} from plain, bits {bits}")
+            x = h[:4096].contiguous()
+            k32 = plain["k"].to(dtype).float()
+            x32 = x.reshape(4096, -1).float()
+            host = []
+            for _ in range(20):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dh.decoder_head_fused(head, x, cfg)
+                host.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            depth, n_out = plain["k"].shape
+            size = x.element_size()
+            nbytes = 4096 * depth * size + depth * n_out * size + 4096 * n_out * 4
+            bound = tc_bound(nbytes, 2.0 * 4096 * depth * n_out, 1)
+            if dtype == torch.float32:  # held to the CUDA cores' rate
+                bound.update(bound_ms=bound["f32_core_bound_ms"], bound_by="operations")
+            rows.append(dict(
+                name=name, route="cuda", source="vqvdb_tpu_torch/csrc/decoder_head.cu",
+                replaces="none (models/blocks.py::channel_attention + ops/tail.py, eager)",
+                max_abs_err=err, equal_share=equal,
+                ms=cuda_ms(lambda: dh.decoder_head_fused(head, x, cfg), graph=True),
+                plain_ms=cuda_ms(lambda: dh.decoder_head_plain(plain, x, cfg)),
+                **bound,
+                library_ms=cuda_ms(lambda: torch.matmul(x32, k32)),
+                host_us=float(np.median(host)) * 1e6,
+                check=f"{depth} -> {n_out}: max abs {err:.3g} from plain ({equal:.4%} equal), "
+                      f"a leaf's bits alone, shifted and among 4,097 equal; host "
+                      f"{float(np.median(host)) * 1e6:.1f} us a call"))
+    return rows
+
+
 def staged_index_check(name, got, ref, stage_scores):
     """Indices got, ref [N, S] stage by stage: a row that differs at stage s
     must be a near-tie of stage_scores[s] (plain f32 scores of the reference
@@ -1215,11 +1304,14 @@ def tier_round_trip(label, codec, grid, path, **opts):
         want = {"nearest_indices": s * batches, "dequantize": s * batches}
     ge, gd = gn_steps(codec)
     want["group_norm"] = ge * batches
+    hd = HEAD_LAUNCHES
     if opts.get("residual"):  # the encode batches run the decode step too
         want["dequantize"] += s * batches
         want["group_norm"] += gd * batches
+        want["decoder_head"] = hd * batches
     expect_launches(f"{label} encode", enc, **want)
-    expect_launches(f"{label} decode", dec, dequantize=s * batches, group_norm=gd * batches)
+    expect_launches(f"{label} decode", dec, dequantize=s * batches, group_norm=gd * batches,
+                    decoder_head=hd * batches)
     per_batch = {k: v / batches * 1e3 for k, v in
                  {**cstats["host_seconds"], **dstats["host_seconds"]}.items()}
     quality = psnr(out.leaves, grid.leaves)
@@ -1348,7 +1440,8 @@ def large_codebook_phase(tree, cfg, grid, seed: int, workdir: Path):
     ge, gd = gn_steps(codec)
     expect_launches("k4096 encode", res["encode_launches"], score_argmin=n * tiles,
                     group_norm=ge * n)
-    expect_launches("k4096 decode", res["decode_launches"], dequantize=n, group_norm=gd * n)
+    expect_launches("k4096 decode", res["decode_launches"], dequantize=n, group_norm=gd * n,
+                    decoder_head=HEAD_LAUNCHES * n)
     with VqvdbReader(workdir / "k4096.vqvdb") as r:
         version = r.version
     idx = _file_indices(workdir / "k4096.vqvdb")
@@ -1453,7 +1546,7 @@ def deep_rows_phase(seed: int, grid, workdir: Path):
         out, dstats = codec.decompress(path)
         dec = read_launches()
         expect_launches(f"{label} decompress", dec, dequantize=batches,
-                        group_norm=gd * batches)
+                        group_norm=gd * batches, decoder_head=HEAD_LAUNCHES * batches)
         if (out[0].leaves.shape != leaves.leaves.shape or not np.isfinite(out[0].leaves).all()
                 or not np.array_equal(out[0].origins, leaves.origins)):
             raise AssertionError(f"{label}: decoded leaves or origins are not the input's")
@@ -1583,7 +1676,8 @@ def user_path(codec, grid, workdir: Path):
         (res,) = api.decode_dense(path, codec)
         torch.cuda.synchronize()
         expect_launches(f"dense decode {label}", read_launches(), dequantize=batches,
-                        group_norm=gn_steps(codec)[1] * batches)
+                        group_norm=gn_steps(codec)[1] * batches,
+                        decoder_head=HEAD_LAUNCHES * batches)
         dense = res["dense"]
         if not dense.is_cuda:
             raise AssertionError(f"dense decode {label}: result on {dense.device}")
@@ -1912,7 +2006,7 @@ def train_codec(cfg, params, grid, seed, workdir: Path):
     expect_launches("trained model encode", res["encode_launches"], score_argmin=n,
                     group_norm=ge * n)
     expect_launches("trained model decode", res["decode_launches"], dequantize=n,
-                    group_norm=gd * n)
+                    group_norm=gd * n, decoder_head=HEAD_LAUNCHES * n)
     sample = grid.leaves[:16384]
     report = evaluate_codec(codec, sample)
     book = codebook_report(report["indices"], cfg.num_embeddings)
@@ -2271,7 +2365,9 @@ def serving_phase(seed: int, grid, workdir: Path, device: str = "cuda"):
                                            ("decode", dec_info, "dequantize", 1)):
                 expect_launches(f"served {name}", info["launches"],
                                 **{kernel: info["device_batches"],
-                                   "group_norm": gn_steps(codec)[gn] * info["device_batches"]})
+                                   "group_norm": gn_steps(codec)[gn] * info["device_batches"],
+                                   "decoder_head": gn * HEAD_LAUNCHES
+                                   * info["device_batches"]})
                 if info["device_batches"] < 1 or not (info["coalesced"] > 0
                                                       and info["steps"] < n_req):
                     raise AssertionError(f"served {name}: no coalescing: {info}")
@@ -2464,7 +2560,8 @@ def mesh_codec_phase(tree, cfg, codec, grid, refs, workdir: Path):
         ge, gd = gn_steps(mcodec)
         expect_launches(f"mesh {tier} encode", enc, score_argmin=steps,
                         group_norm=(ge + (gd if opts else 0)) * steps,
-                        **({"dequantize": steps} if opts else {}))
+                        **({"dequantize": steps,
+                            "decoder_head": HEAD_LAUNCHES * steps} if opts else {}))
         if path.read_bytes() != refs[tier].read_bytes():
             raise AssertionError(f"mesh {tier} file differs from the single-device file")
         out[f"{tier}_byte_identical"] = True
@@ -2473,7 +2570,8 @@ def mesh_codec_phase(tree, cfg, codec, grid, refs, workdir: Path):
     (got,), _ = mcodec.decompress(refs["v3"])
     out["decode_launches"] = read_launches()
     expect_launches("mesh decode", out["decode_launches"], dequantize=steps,
-                    group_norm=gn_steps(mcodec)[1] * steps)
+                    group_norm=gn_steps(mcodec)[1] * steps,
+                    decoder_head=HEAD_LAUNCHES * steps)
     (want,), _ = codec.decompress(refs["v3"])
     if not np.array_equal(got.leaves, want.leaves):
         raise AssertionError("mesh decompress differs from the single-device decompress")
@@ -2732,7 +2830,7 @@ def stem_phase(args, flag_cfg, grid, workdir: Path):
         expect_launches(f"packed_stem {label} encode", res["encode_launches"], score_argmin=n,
                         group_norm=ge * n)
         expect_launches(f"packed_stem {label} decode", res["decode_launches"], dequantize=n,
-                        group_norm=gd * n)
+                        group_norm=gd * n, decoder_head=HEAD_LAUNCHES * n)
         psnrs[label] = res["psnr_db"]
         out[f"round_trip_{label}"] = res
     if not psnrs["trained"] > psnrs["init"]:
@@ -2773,17 +2871,22 @@ def _one_card_mesh(entries: int):
 def _layout_launches(label, n, batch, size, codec):
     """The launches each model's encode and decode make on a mesh of `size`
     over n leaves: one per kernel and stage a shard step, and one per
-    GroupNorm of each step (`gn_steps`; a v6 encode runs the decode step too)."""
+    GroupNorm of each step (`gn_steps`; a v6 encode runs the decode step too)
+    and the head's (`HEAD_LAUNCHES`) of each decode step."""
     steps = _shard_steps(n, batch, size)
     ge, gd = gn_steps(codec)
+    hd = HEAD_LAUNCHES
     enc, dec = {"scalar": (dict(score_argmin=steps), dict(dequantize=steps)),
                 "scalar_v6_int8": (dict(score_argmin=steps, dequantize=steps), None),
                 "scalar_reference": (dict(fused_rb=steps, score_argmin=steps),
                                      dict(dequantize=steps)),
                 "scalar_rvq2": (dict(nearest_indices=2 * steps, dequantize=2 * steps),
                                 dict(dequantize=2 * steps))}[label]
-    enc["group_norm"] = (ge + (gd if label.endswith("_v6_int8") else 0)) * steps
-    return enc, dec and dict(dec, group_norm=gd * steps)
+    v6 = label.endswith("_v6_int8")
+    enc["group_norm"] = (ge + (gd if v6 else 0)) * steps
+    if v6:
+        enc["decoder_head"] = hd * steps
+    return enc, dec and dict(dec, group_norm=gd * steps, decoder_head=hd * steps)
 
 
 def _layout_case(label, tree, cfg, ref, mesh, workdir: Path, batch: int = 4096):
@@ -2940,17 +3043,19 @@ H100_SXM = "NVIDIA H100 80GB HBM3"
 
 
 def _bench_capture_launches(row: str, dense_steps: int):
-    """The launches one captured step of a bench row must record."""
+    """The launches one captured step of a bench row must record (the
+    baseline's f32 decoder runs the unfolded tail, no head kernel)."""
     if row.startswith("baseline"):
-        row = "decode"
-    return {"decode": {"dequantize": 1, "group_norm": 3},
+        return {"dequantize": 1, "group_norm": 3}
+    return {"decode": {"dequantize": 1, "group_norm": 3, "decoder_head": 2},
             "encode": {"score_argmin": 1, "group_norm": 3},
-            "vec3_decode": {"dequantize": 1, "group_norm": 5},
+            "vec3_decode": {"dequantize": 1, "group_norm": 5, "decoder_head": 2},
             "vec3_encode": {"score_argmin": 1, "group_norm": 3},
-            "rvq2_decode": {"dequantize": 2, "group_norm": 3},
+            "rvq2_decode": {"dequantize": 2, "group_norm": 3, "decoder_head": 2},
             # the unfolded reference encoder: its 16-channel block eager
             "rvq2_encode": {"nearest_indices": 2, "dequantize": 2, "group_norm": 5},
-            "dense_decode_device": {"dequantize": dense_steps, "group_norm": 3 * dense_steps},
+            "dense_decode_device": {"dequantize": dense_steps, "group_norm": 3 * dense_steps,
+                                    "decoder_head": 2 * dense_steps},
             "dense_encode_device": {"score_argmin": dense_steps, "fused_rb": dense_steps,
                                     "group_norm": 3 * dense_steps}}[row]
 
@@ -3084,7 +3189,7 @@ def dp_phase():
         expect_launches(f"dp {label} compress", rec["compress_launches"],
                         score_argmin=steps, fused_rb=steps, group_norm=3 * steps)
         expect_launches(f"dp {label} decode", rec["decode_launches"], dequantize=steps,
-                        group_norm=3 * steps)
+                        group_norm=3 * steps, decoder_head=2 * steps)
         if ref is None:
             if not np.isfinite(rec["leaves"]).all():
                 raise AssertionError("dp: the no-mesh decode is not finite")
@@ -3359,7 +3464,7 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
     c.cook("encode_v3", hdk.encode_line(cmd, bridges["full"], files["v3"], model=scalar),
            score_argmin=steps(full), group_norm=ge * steps(full))
     c.cook("decode_v3", hdk.decode_line(cmd, files["v3"], decoded["v3"], model=scalar),
-           dequantize=steps(full), group_norm=gd * steps(full))
+           dequantize=steps(full), group_norm=gd * steps(full), decoder_head=2 * steps(full))
     # the other cooks HDK_TOGETHER at a time, their twins meanwhile: (a) Int8
     # and Half on the field's first leaves, (b) the batch parameter's two
     # ends, (c) the reference arch, (d) what the node shows when a cook fails
@@ -3369,23 +3474,26 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
         jobs.append([(f"encode_{k}", hdk.encode_line(cmd, bridges["tiers"], files[k],
                                                      model=scalar, residual=residual),
                       dict(score_argmin=steps(tiers), dequantize=steps(tiers),
-                           group_norm=(ge + gd) * steps(tiers))),
+                           group_norm=(ge + gd) * steps(tiers), decoder_head=2 * steps(tiers))),
                      (f"decode_{k}", hdk.decode_line(cmd, files[k], decoded[k], model=scalar),
-                      dict(dequantize=steps(tiers), group_norm=gd * steps(tiers)))])
+                      dict(dequantize=steps(tiers), group_norm=gd * steps(tiers),
+                           decoder_head=2 * steps(tiers)))])
     for k, bridge, n, batch in (("b16384", "full", full, 16384), ("b1", "one", one, 1)):
         jobs.append([(f"encode_v3_{k}", hdk.encode_line(cmd, bridges[bridge], files[k], batch,
                                                         model=scalar),
                       dict(score_argmin=steps(n, batch), group_norm=ge * steps(n, batch))),
                      (f"decode_v3_{k}", hdk.decode_line(cmd, files[k], decoded[k], batch,
                                                         model=scalar),
-                      dict(dequantize=steps(n, batch), group_norm=gd * steps(n, batch)))])
+                      dict(dequantize=steps(n, batch), group_norm=gd * steps(n, batch),
+                           decoder_head=2 * steps(n, batch)))])
     jobs.append([("encode_reference", hdk.encode_line(cmd, bridges["full"], files["reference"],
                                                       model=ref),
                   dict(fused_rb=steps(full), score_argmin=steps(full),
                        group_norm=ref_ge * steps(full))),
                  ("decode_reference", hdk.decode_line(cmd, files["reference"],
                                                       decoded["reference"], model=ref),
-                  dict(dequantize=steps(full), group_norm=ref_gd * steps(full)))])
+                  dict(dequantize=steps(full), group_norm=ref_gd * steps(full),
+                       decoder_head=2 * steps(full)))])
     jobs.append([("missing_input", hdk.encode_line(cmd, root / "no such 'input'.vdb",
                                                    root / "x.vqvdb", model=scalar), None)])
     jobs.append([("missing_model", hdk.encode_line(cmd, bridges["one"], root / "y.vqvdb"),
@@ -3467,7 +3575,8 @@ def hdk_phase(codec, grid, workdir: Path, smi: str):
                 "dequantize": c.rows["decode_v3"]["launches"]["dequantize"],
                 "fused_rb": c.rows["encode_reference"]["launches"]["fused_rb"],
                 "score_argmin_width32": c.rows["encode_reference"]["launches"]["score_argmin"],
-                "group_norm": c.rows["encode_v3"]["launches"]["group_norm"]}
+                "group_norm": c.rows["encode_v3"]["launches"]["group_norm"],
+                "decoder_head": c.rows["decode_v3"]["launches"]["decoder_head"]}
     return {"cooks": c.rows, "errors": errors, **summary}, launches
 
 
@@ -3562,6 +3671,7 @@ def main() -> int:
         gn_res, gn_rows = group_norm_phase(side["vec3"][2], vgrid, ref_codec, grid, workdir)
         log(f"[group_norm] {json.dumps(gn_res)}")
         kernels += log_kernel_rows(gn_rows)
+        kernels += log_kernel_rows(decoder_head_rows(codec, side["vec3"][2]))
         if args.profile is not None:
             # (not `codec`: the flagship's codec runs the later phases)
             for label, side_codec, data in (("reference", ref_codec, grid),
@@ -3643,6 +3753,8 @@ def main() -> int:
     launches["group_norm_relu_8x64"] = gn_res["by_shape"]["vec3_upstream_encode"]["512x64/8"]
     launches["group_norm_relu_4x128"] = gn_res["by_shape"]["vec3_decode"]["64x128/8"]
     launches["group_norm_relu_8x16"] = gn_res["by_shape"]["reference_encode"]["512x16/4"]
+    launches["decoder_head_4x64"] = main_res["decode_launches"]["decoder_head"]
+    launches["decoder_head_4x128"] = side_res["vec3"]["decode_launches"]["decoder_head"]
     launches["fused_rb_f32"] = par["scalar_reference"]["launches"]["fused_rb"]
     launches["score_argmin_width32"] = ref_res["encode_launches"]["score_argmin"]
     launches["score_argmin_width128"] = side_res["vec3"]["encode_launches"]["score_argmin"]
@@ -3659,6 +3771,7 @@ def main() -> int:
     launches["score_argmin_mesh"] = mesh_res["codec"]["v3_encode_launches"]["score_argmin"]
     launches["dequantize_mesh"] = mesh_res["codec"]["decode_launches"]["dequantize"]
     launches["group_norm_mesh"] = mesh_res["codec"]["decode_launches"]["group_norm"]
+    launches["decoder_head_mesh"] = mesh_res["codec"]["decode_launches"]["decoder_head"]
     launches["nearest_indices_group_of_one"] = \
         mesh_res["group_of_one"]["train_launches"]["nearest_indices"]
     launches["score_argmin_packed_stem"] = \
@@ -3672,13 +3785,14 @@ def main() -> int:
     launches["fused_rb_layout"] = many["scalar_reference"]["v3_encode"]["fused_rb"]
     launches["nearest_indices_layout"] = many["scalar_rvq2"]["v3_encode"]["nearest_indices"]
     launches["group_norm_layout"] = many["scalar"]["v3_encode"]["group_norm"]
+    launches["decoder_head_layout"] = many["scalar"]["decode"]["decoder_head"]
     # Phase 19's bench: each kernel counted once per capture and eager call
     # (a replayed graph launches without its wrapper).
     for name, count in bench_launches.items():
         launches[f"{name}_bench"] = count
     # Phase 20's data-parallel bench: the reference arch's compress and the
     # decode of its file, on every mesh.
-    for name in ("score_argmin", "fused_rb", "dequantize"):
+    for name in ("score_argmin", "fused_rb", "dequantize", "decoder_head"):
         launches[f"{name}_dp"] = dp_launches[name]
     # Phase 21's in-process twins of the SOPs' cooks: the flagship's v3
     # encode and decode at batch 4,096 and the reference arch's encode.

@@ -1300,3 +1300,168 @@ def test_card_encode_fine_is_timed_on_the_card_only_under_a_profiler(tmp_path):
         _, idx, _ = r.read_grid()
     assert r.version == 4 and idx.dtype == np.uint16 and idx.max() > 255
     assert np.array_equal(idx, codec.encode_leaves(grid.leaves))
+
+
+# -- the decoder's head (csrc/decoder_head.cu) ---------------------------------
+
+# (C_in, C_out): the flagship's and vec3's decoders, and each width with the
+# other head.
+HEAD_SHAPES = [(64, 1), (128, 3), (128, 1), (64, 3)]
+HEAD_DTYPES = [torch.bfloat16, torch.float32]
+# The kernel against its plain version: every value within ATOL, and 99%
+# within 1e-5 (the sums' order; in bf16 a gate whose f32 value sits at a
+# bf16 rounding boundary may round the other way and move its leaf by more).
+HEAD_ATOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}
+
+
+def _head_inputs(rng, dev, n, c, c_out, dtype=torch.bfloat16):
+    """A trunk-like input (B, 4, 4, 4, C_in) of `dtype` and a head as
+    `prepare_head` lays it out, with both operators: the fold 'k' (which the
+    f32 kernel and the plain version read) and its tiles 'op' (the bf16
+    kernel's)."""
+    from vqvdb_tpu_torch.core.config import ModelConfig
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+
+    depth, n_out, hid = 64 * c, 512 * c_out, c // 4
+
+    def normal(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+    k = normal(depth, n_out, scale=depth ** -0.5)
+    head = {"k": k, "b": normal(n_out, scale=0.1), "op": dh.operator_tiles(k),
+            "w1": normal(c, hid, scale=c ** -0.5), "w2": normal(hid, c, scale=hid ** -0.5)}
+    x = (rng.standard_normal((n, 4, 4, 4, c)) * rng.uniform(0.5, 2.0, c)).astype(np.float32)
+    return ({name: t.to(dev) for name, t in head.items()}, ModelConfig(in_channels=c_out),
+            torch.from_numpy(x).to(dev, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("n", [4097, 300, 1])
+@pytest.mark.parametrize("c,c_out", HEAD_SHAPES)
+def test_card_decoder_head(rng, c, c_out, n, dtype):
+    """The kernel against its plain version (the eager attention and the
+    tail product, f32 operands for f32 features): every value
+    within `HEAD_ATOL`, and 99% within 1e-5; two launches a call; the same
+    bits on repeat."""
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+
+    dev = _card()
+    head, cfg, x = _head_inputs(rng, dev, n, c, c_out, dtype)
+    launches = dh.decoder_head_fused.launches
+    with torch.inference_mode():
+        got = dh.decoder_head_fused(head, x, cfg)
+        torch.cuda.synchronize()
+        assert dh.decoder_head_fused.launches == launches + 2
+        assert got.shape == (n, 8, 8, 8, c_out) and got.dtype == torch.float32
+        want = dh.decoder_head_plain(head, x, cfg)
+        assert got.isfinite().all()
+        torch.testing.assert_close(got, want, atol=HEAD_ATOL[dtype], rtol=0)
+        assert ((got - want).abs() <= 1e-5).float().mean().item() >= 0.99
+        assert torch.equal(dh.decoder_head_fused(head, x, cfg), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+@pytest.mark.parametrize("c,c_out", HEAD_SHAPES[:2])
+def test_card_decoder_head_leaf_bits_do_not_depend_on_the_batch(rng, c, c_out, dtype):
+    """A leaf gets the same bits alone, among 4,097 leaves, in a batch of
+    4,096 and at another place in its tile (the batch shifted by 1 and 77)."""
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+
+    dev = _card()
+    head, cfg, x = _head_inputs(rng, dev, 4097, c, c_out, dtype)
+    with torch.inference_mode():
+        whole = dh.decoder_head_fused(head, x, cfg)
+        for sl in (slice(0, 1), slice(4096, 4097), slice(0, 4096), slice(1, None),
+                   slice(77, 3000), slice(5, 6)):
+            assert torch.equal(dh.decoder_head_fused(head, x[sl], cfg), whole[sl]), sl
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", HEAD_DTYPES)
+def test_card_decoder_head_in_a_cuda_graph(rng, dtype):
+    """Captured in a CUDA graph and replayed, the head gives the eager
+    call's bits (no synchronisation or allocation inside the launches)."""
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+
+    dev = _card()
+    head, cfg, x = _head_inputs(rng, dev, 1000, 128, 3, dtype)
+    with torch.inference_mode():
+        eager = dh.decoder_head_fused(head, x, cfg)
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            dh.decoder_head_fused(head, x, cfg)  # warm-up off the default stream
+        torch.cuda.current_stream().wait_stream(stream)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = dh.decoder_head_fused(head, x, cfg)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["f16", "width48", "width160", "width32", "no_tiles",
+                                  "no_fold"])
+def test_card_decoder_head_refuses_what_it_cannot_take(rng, case):
+    """An f16 input, a width the kernel has no instantiation for, or a head
+    without the operator its step reads (a bf16 step without tiles, an f32
+    step without the f32 fold) raises ValueError on the card before any
+    launch; nothing falls back."""
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+
+    dev = _card()
+    c = {"width48": 48, "width160": 160, "width32": 32}.get(case, 64)
+    head, cfg, x = _head_inputs(rng, dev, 8, c, 1, torch.float32 if case == "no_fold"
+                                else torch.bfloat16)
+    if case == "f16":
+        x = x.half()
+    elif case in ("no_tiles", "no_fold"):
+        del head["op" if case == "no_tiles" else "k"]
+    launches = dh.decoder_head_fused.launches
+    with pytest.raises(ValueError):
+        dh.decoder_head_fused(head, x, cfg)
+    assert dh.decoder_head_fused.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("name", ["scalar", "vec3"])
+def test_card_decode_step_launches_the_head_and_no_mm(name, dtype):
+    """A traced decode step of the cells' codec (batch 4,096), in bf16 and
+    in f32, runs the head as its two kernels (the gate, the product) and no
+    `aten::mm`; the step equals the plain graph's within the head's
+    tolerance. The codec holds only the operator its step reads."""
+    from vqvdb_tpu_torch import api
+    from vqvdb_tpu_torch.models import vqvae
+    from vqvdb_tpu_torch.ops import decoder_head as dh
+
+    _card()
+    codec = api.make_codec(_MODELS / f"{name}.vqmodel", device="cuda", compute_dtype=dtype)
+    assert ("op" in codec._head) == (dtype == "bfloat16") != ("k" in codec._head)
+    cfg = codec.mcfg
+    idx = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.num_embeddings, (4096,) + cfg.index_shape).astype(np.int32)).cuda()
+    # the plain version's head, folded as the codec's constructor folds it:
+    # outside inference mode
+    plain = dh.prepare_head(codec.params["decoder"], cfg, torch.float32)
+    with torch.inference_mode():
+        codec._decode_step(idx)
+        torch.cuda.synchronize()
+        launches = dh.decoder_head_fused.launches
+        acts = (torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA)
+        with torch.profiler.profile(activities=list(acts)) as prof:
+            got = codec._decode_step(idx)
+            torch.cuda.synchronize()
+        assert dh.decoder_head_fused.launches == launches + 2
+        names = [e.name() for e in prof.profiler.kineto_results.events()]
+        kernels = [n for n in names if "gate_kernel" in n or "head_kernel" in n]
+        assert len(kernels) == 2, kernels
+        assert "aten::mm" not in names and "aten::matmul" not in names
+        z = codec._codebook[idx.reshape(-1).long()].reshape(
+            (4096,) + cfg.latent_shape + (cfg.embedding_dim,))
+        want = dh.decoder_head_plain(plain, vqvae.decoder_trunk(
+            codec.params["decoder"], z, cfg), cfg)
+        torch.testing.assert_close(got, want, atol=HEAD_ATOL[codec.dtype], rtol=0)

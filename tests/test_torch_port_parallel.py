@@ -275,7 +275,9 @@ def test_replicated_constants_are_the_first_devices_bits(packed):
     first = codec._consts[codec.device]
     for rep in replicate(first, codec.mesh):
         assert torch.equal(rep["score_prep"].operand, first["score_prep"].operand)
-        assert torch.equal(rep["folded_tail"]["k"], first["folded_tail"]["k"])
+        assert rep["head"].keys() == first["head"].keys()
+        for name, t in first["head"].items():
+            assert torch.equal(rep["head"][name], t), name
     assert params_to_jax(codec.params)["vq"]["embedding"].shape == (64, 32)
 
 

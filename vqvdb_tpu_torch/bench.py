@@ -156,8 +156,9 @@ def _tensors(out) -> Tuple[torch.Tensor, ...]:
 
 
 def launches() -> Dict[str, int]:
-    """The five kernel wrappers' launch counters."""
+    """The six kernel wrappers' launch counters."""
     from vqvdb_tpu_torch.ops import quantize as q
+    from vqvdb_tpu_torch.ops.decoder_head import decoder_head_fused
     from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
     from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
 
@@ -165,7 +166,8 @@ def launches() -> Dict[str, int]:
             "score_argmin": q.fused_score_argmin.launches,
             "nearest_indices": q.fused_nearest_indices.launches,
             "fused_rb": residual_block_fused.launches,
-            "group_norm": group_norm_relu_fused.launches}
+            "group_norm": group_norm_relu_fused.launches,
+            "decoder_head": decoder_head_fused.launches}
 
 
 class FencedLoop:

@@ -164,35 +164,52 @@ def encoder_features_packed_down(params: Params, folded_down: Params,
     return _reference_post(params, h, cfg)
 
 
-def decoder_pre_tail(params: Params, z: torch.Tensor,
-                     cfg: ModelConfig) -> torch.Tensor:
-    """Decoder up to (excluding) up_conv: (B,4,4,4,D) -> (B,4,4,4,64|128)."""
+def decoder_trunk(params: Params, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Decoder up to (excluding) its channel attention: (B,4,4,4,D) ->
+    (B,4,4,4,64|128). The codec's decode step runs the head after it
+    (`ops/decoder_head.py`)."""
     with span("decode/stem"):
         h = blocks.conv3d(params["stem_conv"], z, padding=1)
         h = blocks.group_norm_relu(params["stem_gn"], h, 8)
     return _decoder_blocks(params, h, cfg)
 
 
-def _decoder_trunk(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def decoder_pre_tail(params: Params, z: torch.Tensor,
+                     cfg: ModelConfig) -> torch.Tensor:
+    """Decoder up to (excluding) up_conv: (B,4,4,4,D) -> (B,4,4,4,64|128)."""
+    return _decoder_attention(params, decoder_trunk(params, z, cfg))
+
+
+def _decoder_after_stem_conv(params: Params, h: torch.Tensor, cfg: ModelConfig
+                             ) -> torch.Tensor:
     """The decoder after its stem conv, up to (excluding) up_conv."""
     with span("decode/stem"):
         h = blocks.group_norm_relu(params["stem_gn"], h, 8)
-    return _decoder_blocks(params, h, cfg)
+    return _decoder_attention(params, _decoder_blocks(params, h, cfg))
 
 
 def _decoder_blocks(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The decoder's residual blocks and channel attention."""
+    """The decoder's residual blocks."""
     for key in ("rb",) if cfg.variant == "scalar" else ("rb1", "rb2"):
         with span(f"decode/{key}"):
             h = blocks.residual_block(params[key], h)
+    return h
+
+
+def _decoder_attention(params: Params, h: torch.Tensor) -> torch.Tensor:
     with span("decode/attention"):
         return blocks.channel_attention(params["attn"], h)
 
 
+def head_activation_name(cfg: ModelConfig) -> str:
+    """The decoder head's activation: "sigmoid" (scalar) or "tanh" (vec3)."""
+    return "sigmoid" if cfg.variant == "scalar" else "tanh"
+
+
 def head_activation(h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """sigmoid (scalar) or tanh (vec3) of the f32 logits."""
+    """`head_activation_name(cfg)` of the f32 logits."""
     h = h.to(torch.float32)
-    return torch.sigmoid(h) if cfg.variant == "scalar" else torch.tanh(h)
+    return torch.sigmoid(h) if head_activation_name(cfg) == "sigmoid" else torch.tanh(h)
 
 
 def decoder_tail(params: Params, h: torch.Tensor,
@@ -376,7 +393,7 @@ def decode_from_indices(params: Params, indices: torch.Tensor, cfg: ModelConfig,
     for s in range(0, idx.shape[0], DECODE_CHUNK):
         h = _stem_from_indices(dec["stem_conv"], params["vq"]["embedding"],
                                idx[s:s + DECODE_CHUNK], cfg, compute_dtype)
-        out.append(decoder_tail(dec, _decoder_trunk(dec, h, cfg), cfg))
+        out.append(decoder_tail(dec, _decoder_after_stem_conv(dec, h, cfg), cfg))
     return torch.cat(out) if len(out) != 1 else out[0]
 
 

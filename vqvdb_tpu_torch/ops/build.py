@@ -31,7 +31,7 @@ import torch
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-SOURCES = ("dequantize", "score_argmin_tc", "fused_rb_tc", "group_norm")
+SOURCES = ("dequantize", "score_argmin_tc", "fused_rb_tc", "group_norm", "decoder_head")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -44,6 +44,8 @@ ENTRY_POINTS = {
     "vq_residual_block16": ("fused_rb_tc", (_P, _I, _P, _P, _P, _P, _I, _I, _F, _F)),
     "vq_group_norm_relu": ("group_norm", (_P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                                            _F)),
+    "vq_decoder_head": ("decoder_head", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I)),
+    "vq_decoder_head_f32": ("decoder_head", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I)),
 }
 
 _lock = threading.Lock()

@@ -12,12 +12,14 @@ VJP per output, not one forward per input) and applied as one GEMM:
 Rows are in NDHWC order (d, h, w, c) of the 4^3 x C_in input; the outputs
 are the 8^3 x C_out voxels in the same order.
 
-The GEMM is a plain large product, so it stays `torch.matmul`: the
-features and the operator are rounded to the compute dtype and then
-multiplied in f32, which is the JAX package's bf16 x bf16 -> f32 product.
-At inference it runs on fixed-shape blocks of rows (`blocks.row_blocks`),
-so that a row's leaves do not depend on how many rows share its batch (a
-mesh's devices decode shards of it).
+`apply_decoder_tail` is the eager form of the product: the features and
+the operator are rounded to the compute dtype and then multiplied in f32,
+which is the JAX package's bf16 x bf16 -> f32 product, on fixed-shape
+blocks of rows (`blocks.row_blocks`), so that a row's leaves do not depend
+on how many rows share its batch. It is the plain version of the decode
+step's head (`ops/decoder_head.py`), which on the card runs the product,
+with the channel attention before it, as one hand-written kernel on an
+operator rounded once.
 """
 
 from __future__ import annotations
@@ -30,7 +32,6 @@ from torch.func import vjp, vmap
 from vqvdb_tpu_torch.core.config import LATENT_VOXELS, LEAF_DIM, ModelConfig
 from vqvdb_tpu_torch.models import blocks
 from vqvdb_tpu_torch.models.vqvae import head_activation
-from vqvdb_tpu_torch.utils.profiler import span
 
 
 def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
@@ -59,11 +60,9 @@ def fold_decoder_tail(decoder_params: Dict, cfg: ModelConfig
 
 def apply_decoder_tail(folded: Dict, h: torch.Tensor, cfg: ModelConfig
                        ) -> torch.Tensor:
-    """h (B,4,4,4,C_in) -> head activations (B,8,8,8,C_out) f32 (the trace
-    range `decode/tail`)."""
+    """h (B,4,4,4,C_in) -> head activations (B,8,8,8,C_out) f32."""
     b = h.shape[0]
-    with span("decode/tail"):
-        k = folded["k"].to(h.dtype).to(torch.float32)
-        logits = blocks.row_blocks(h.reshape(b, -1).to(torch.float32), k) + folded["b"]
-        logits = logits.reshape(b, LEAF_DIM, LEAF_DIM, LEAF_DIM, cfg.in_channels)
-        return head_activation(logits, cfg)
+    k = folded["k"].to(h.dtype).to(torch.float32)
+    logits = blocks.row_blocks(h.reshape(b, -1).to(torch.float32), k) + folded["b"]
+    logits = logits.reshape(b, LEAF_DIM, LEAF_DIM, LEAF_DIM, cfg.in_channels)
+    return head_activation(logits, cfg)

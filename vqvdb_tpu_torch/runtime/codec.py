@@ -17,7 +17,9 @@ Encode:  leaves -> encoder features -> score-argmin kernel (the 1x1
          per stage the nearest-code and dequantize kernels -> indices
          [B,4,4,4,S].
 Decode:  indices -> dequantize kernel (once per stage, rows summed) ->
-         decoder pre-tail -> folded tail GEMM + sigmoid / tanh.
+         decoder trunk -> the head (channel attention, folded tail GEMM,
+         sigmoid / tanh): one kernel pair on the card
+         (`ops/decoder_head.py`).
 
 Indices are u8 for K <= 256; for larger codebooks u16 on the host (int16
 bits in the pinned buffers) and int32 on the card. Files: v3 by default,
@@ -84,11 +86,12 @@ from vqvdb_tpu_torch.format.vqvdb import GridMetadata, VqvdbReader, VqvdbWriter
 from vqvdb_tpu_torch.models.quantizer import rvq_dequantize, rvq_indices
 from vqvdb_tpu_torch.models.vqvae import (
     check_tree,
-    decoder_pre_tail,
+    decoder_trunk,
     encoder_apply,
     encoder_features,
     encoder_features_packed_down,
 )
+from vqvdb_tpu_torch.ops.decoder_head import decoder_head_fused, prepare_head
 from vqvdb_tpu_torch.ops.group_norm import group_norm_relu_fused
 from vqvdb_tpu_torch.ops.packed import fold_strided_conv
 from vqvdb_tpu_torch.ops.quantize import (
@@ -98,7 +101,6 @@ from vqvdb_tpu_torch.ops.quantize import (
     prepare_codebook,
     prepare_scores,
 )
-from vqvdb_tpu_torch.ops.tail import apply_decoder_tail, fold_decoder_tail
 from vqvdb_tpu_torch.parallel.distributed import all_gather_rows
 from vqvdb_tpu_torch.parallel.mesh import Mesh, make_sharded_encode, replicate, shard_batch
 from vqvdb_tpu_torch.runtime.native_io import copy_into
@@ -195,7 +197,10 @@ class VQCodec:
             # The decode codebook is cast to the compute dtype before the lookup.
             self._codebook = self.params["vq"]["embedding"].to(self.dtype)
         with prof("init/tail_fold"):
-            self._folded_tail = fold_decoder_tail(self.params["decoder"], self.mcfg)
+            # The decoder's head: the folded tail's bias and the operator the
+            # step multiplies by (in bf16 in the kernel's layout for a bf16
+            # step on the card), the attention's weights.
+            self._head = prepare_head(self.params["decoder"], self.mcfg, self.dtype)
         # Residual-VQ needs the latent itself for its later stages, so the
         # projection folds into the scores only for a single-stage model.
         self._score_mc = None
@@ -226,7 +231,7 @@ class VQCodec:
         # What the device steps read, per device: on a mesh each local device
         # holds a copy of the first device's bits.
         consts = {"params": self.params, "codebook": self._codebook,
-                  "folded_tail": self._folded_tail, "score_prep": self._score_prep,
+                  "head": self._head, "score_prep": self._score_prep,
                   "stage_prep": self._stage_prep, "folded_down": self._folded_down}
         self._consts = {self.device: consts}
         if mesh is not None:
@@ -283,8 +288,9 @@ class VQCodec:
             else:
                 z = fused_dequantize(indices.reshape(-1), r["codebook"])
             z = z.reshape((b,) + self.mcfg.latent_shape + (self.mcfg.embedding_dim,))
-        h = decoder_pre_tail(r["params"]["decoder"], z, self.mcfg)
-        return apply_decoder_tail(r["folded_tail"], h, self.mcfg)
+        h = decoder_trunk(r["params"]["decoder"], z, self.mcfg)
+        with span("decode/head"):
+            return decoder_head_fused(r["head"], h, self.mcfg)
 
     # -- latent-shape self-check -----------------------------------------
     def check_latent_shape(self) -> Tuple[int, ...]:

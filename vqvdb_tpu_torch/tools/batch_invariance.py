@@ -11,9 +11,11 @@ of the encode and decode steps of the flagship (`models/scalar.vqmodel`),
 the reference arch (`scalar_reference`) and the residual-VQ model
 (`scalar_rvq2`) whole and in row blocks of 2,048, 1,024, 512 and 256
 leaves (the shards of a 4,096-leaf batch on 2 to 16 devices), in bf16 and
-f32 (TF32 off), the five kernels included (each block its own launch; the
+f32 (TF32 off), the six kernels included (each block its own launch; the
 `group_norm_relu` stages run the GroupNorm kernel on the card, the eager
-`group_norm` stages its plain version), and prints one JSON object:
+`group_norm` stages its plain version; the `tail` stage is the decode step's
+head, fed by the decoder's trunk: the head kernel on the card), and prints
+one JSON object:
 
   "stages":      {model: {dtype: {stage: {block rows: bit-equal}}}}: the
                  port's forms, which must all be true;
@@ -52,6 +54,7 @@ import torch
 from vqvdb_tpu_torch.core.artifact import load_model
 from vqvdb_tpu_torch.core.config import CodecConfig
 from vqvdb_tpu_torch.models import blocks, vqvae
+from vqvdb_tpu_torch.ops.decoder_head import decoder_head_fused
 from vqvdb_tpu_torch.ops.fused_rb import residual_block_fused
 from vqvdb_tpu_torch.ops.packed import space_to_channel
 from vqvdb_tpu_torch.ops.quantize import (
@@ -59,7 +62,7 @@ from vqvdb_tpu_torch.ops.quantize import (
     fused_nearest_indices,
     fused_score_argmin,
 )
-from vqvdb_tpu_torch.ops.tail import apply_decoder_tail
+from vqvdb_tpu_torch.ops.tail import fold_decoder_tail
 from vqvdb_tpu_torch.runtime.codec import VQCodec
 from vqvdb_tpu_torch.train.synthetic import smoke_grid
 from vqvdb_tpu_torch.vdb.grid import LeafGrid
@@ -98,8 +101,9 @@ def _flagship(codec, x, sizes):
         idx = codec._encode_step(x)
         z = codec._codebook[idx.reshape(-1).long()].reshape(
             idx.shape + (cfg.embedding_dim,))
+        trunk = vqvae.decoder_trunk(dec, z, cfg)
         pre = vqvae.decoder_pre_tail(dec, z, cfg)
-        k = codec._folded_tail["k"].to(pre.dtype).to(torch.float32)
+        k = fold_decoder_tail(dec, cfg)["k"].to(pre.dtype).to(torch.float32)
     stem_w = dec["stem_conv"]["w"].to(z.dtype)
     stem_b = dec["stem_conv"]["b"].to(z.dtype)
     out["encoder_stem_conv"] = _invariant(
@@ -119,8 +123,7 @@ def _flagship(codec, x, sizes):
         lambda t: fused_dequantize(t.reshape(-1), codec._codebook), idx, sizes)
     out["decoder_stem_conv"] = _invariant(
         lambda t: blocks.conv3d(dec["stem_conv"], t, padding=1), z, sizes)
-    out["tail"] = _invariant(lambda t: apply_decoder_tail(codec._folded_tail, t, cfg),
-                             pre, sizes)
+    out["tail"] = _invariant(lambda t: decoder_head_fused(codec._head, t, cfg), trunk, sizes)
     single["attention_fc_one_product"] = _invariant(lambda t: t @ w, y, sizes)
     single["tail_one_gemm"] = _invariant(
         lambda t: t.reshape(t.shape[0], -1).to(torch.float32) @ k, pre, sizes)

@@ -23,7 +23,8 @@ the CPU, a device stage does nothing.
 The codec's stages (`runtime/codec.py`, per batch unless said):
 
   init/weights          the weights onto the device (once, in the constructor)
-  init/tail_fold        the decoder tail folded into one GEMM (once)
+  init/tail_fold        the decoder tail folded into one GEMM, and the decoder
+                        head's operator and weights prepared (once)
   init/score_operand    the projection folded into the scores and the score
                         kernel's split operand, or a residual-VQ model's
                         prepared codebooks (once)
@@ -48,9 +49,12 @@ The codec's stages (`runtime/codec.py`, per batch unless said):
 Its spans: `host/file` (a `.vqvdb` file opened, or closed after writing),
 `host/read_frames` (the reader's frames of a batch), `host/write_frames`
 (the writer's), `device/read_back` (the readback's enqueue), and the parts
-of a device step (`models/vqvae.py`, `models/blocks.py`, `ops/tail.py`):
+of a device step (`runtime/codec.py`, `models/vqvae.py`, `models/blocks.py`):
 `decode/dequantize`, `decode/stem`, `decode/rb` (vec3: `decode/rb1`,
-`decode/rb2`), `decode/attention`, `decode/tail`; `encode/features` around
+`decode/rb2`), `decode/head` (the channel attention and the folded tail;
+its plain version, and the unfolded graph outside the codec, open
+`decode/attention` and `decode/tail`);
+`encode/features` around
 `encode/stem`, `encode/rb`, `encode/attention` (reference encoders:
 `encode/pre_conv`, `encode/pre_rb`, `encode/down`, `encode/rb` or
 `encode/rb1`, `encode/rb2`, `encode/attention`; and `encode/proj` without
